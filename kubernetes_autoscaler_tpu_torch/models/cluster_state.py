@@ -191,18 +191,30 @@ _TREES = {cls.__name__: cls for cls in (
     AffinityPlanes, ClusterTensors)}
 
 
+def _tree_class(name: str):
+    """The port's tree class called `name`, or None. WavefrontPlan lives in
+    ops/pack (which imports this module), so it is looked up here lazily."""
+    if name == "WavefrontPlan":
+        from kubernetes_autoscaler_tpu_torch.ops.pack import WavefrontPlan
+
+        return WavefrontPlan
+    return _TREES.get(name)
+
+
 def from_numpy(obj, device: str | torch.device | None = None):
     """The port's dataclass of the same name as `obj`'s class, with every
     numpy field turned into a tensor on `device` (None = CUDA).
 
-    `obj` is any object with the fields of one of the tensor trees above
-    whose leaves are numpy arrays (or array-likes); nested trees convert
-    recursively and None fields stay None. Values are copied bit for bit:
-    dtypes and shapes are those of the arrays."""
+    `obj` is any object with the fields of one of the tensor trees above,
+    or of a wavefront plan (ops/pack.WavefrontPlan), whose leaves are numpy
+    arrays (or array-likes); nested trees convert recursively, None fields
+    stay None and integer fields (a plan's `n_waves`, `n_active`) stay
+    integers. Values are copied bit for bit: dtypes and shapes are those of
+    the arrays."""
     from kubernetes_autoscaler_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    cls = _TREES.get(type(obj).__name__)
+    cls = _tree_class(type(obj).__name__)
     if cls is None:
         raise TypeError(f"no tensor tree named {type(obj).__name__!r}")
     out = {}
@@ -210,7 +222,9 @@ def from_numpy(obj, device: str | torch.device | None = None):
         v = getattr(obj, f.name, None)
         if v is None:
             out[f.name] = None
-        elif type(v).__name__ in _TREES:
+        elif isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+            out[f.name] = int(v)
+        elif _tree_class(type(v).__name__) is not None:
             out[f.name] = from_numpy(v, dev)
         else:
             out[f.name] = torch.from_numpy(np.array(v, copy=True)).to(dev)

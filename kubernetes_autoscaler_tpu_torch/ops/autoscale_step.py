@@ -1,8 +1,16 @@
-"""The fused autoscaling simulation step: one control loop's device content.
+"""The autoscaling simulation steps: one control loop's device content.
 
-Counterpart of the reference package's `ops/autoscale_step.run_once_fused`
-(with `planes=None`, `with_constraints=False`: the live default). Three
-phases on the post-placement world, in order:
+Counterpart of the reference package's `ops/autoscale_step.py` for the
+unconstrained, unsharded case (no `planes`, `with_constraints` or `mesh`).
+
+The phased path — `scale_up_sim` (filter pack, with an optional wavefront
+plan, then every option's estimate and the expander's choice),
+`scale_down_sim` (eligibility and the drain sweep over every node) and
+`run_once_sim` (both on one snapshot) — is the live loop's oracle and the
+reference bench's scale-up measurement.
+
+`run_once_fused` (the live default) runs three phases on the
+post-placement world, in order:
 
   filter      predicates + FFD pack of the pending groups onto the existing
               nodes (kernel launch 1), placements charged to the nodes;
@@ -22,6 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
+    ClusterTensors,
     Dims,
     NodeGroupTensors,
     NodeTensors,
@@ -30,10 +39,91 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     _Tree,
 )
 from kubernetes_autoscaler_tpu_torch.ops import drain, schedule, scoring, utilization
-from kubernetes_autoscaler_tpu_torch.ops.binpack import estimate_all
+from kubernetes_autoscaler_tpu_torch.ops.binpack import EstimateResult, estimate_all
+from kubernetes_autoscaler_tpu_torch.ops.pack import WavefrontPlan
 from kubernetes_autoscaler_tpu_torch.ops.scoring import OptionScores
 
 PHASES = ("filter", "scale_up", "scale_down")
+
+
+@dataclass(frozen=True)
+class ScaleUpSim(_Tree):
+    fits_existing: torch.Tensor  # i32[G] pending pods absorbed by current capacity
+    remaining: torch.Tensor      # i32[G] pods that need new nodes
+    estimate: EstimateResult     # per-node-group expansion options
+    scores: OptionScores
+    best: torch.Tensor           # i32 winning node group index (-1 = none)
+
+
+@dataclass(frozen=True)
+class ScaleDownSim(_Tree):
+    eligible: torch.Tensor        # bool[N] below the utilization threshold
+    removal: drain.RemovalResult  # per-candidate drain verdicts (C == N)
+    utilization: torch.Tensor     # f32[N]
+
+
+def scale_up_sim(
+    nodes: NodeTensors,
+    specs: PodGroupTensors,
+    scheduled: ScheduledPodTensors,
+    groups: NodeGroupTensors,
+    dims: Dims,
+    max_new_nodes: int = 256,
+    strategy: str = "least-waste",
+    wavefront_plan: WavefrontPlan | None = None,
+) -> ScaleUpSim:
+    """The filter pack onto the existing nodes, then every node group's
+    expansion option for what is left, the expander scores and the chosen
+    option. A worthwhile `wavefront_plan` (schedule.plan_wavefronts) takes
+    the filter pack through the wavefront pack; the results are the same."""
+    packed = schedule.schedule_pending_on_existing(
+        nodes, specs, scheduled, wavefront_plan=wavefront_plan)
+    remaining = torch.clamp(specs.count - packed.scheduled, min=0)
+    est = estimate_all(specs.replace(count=remaining), groups, dims,
+                       max_new_nodes)
+    sc = scoring.score_options(est, groups)
+    return ScaleUpSim(fits_existing=packed.scheduled, remaining=remaining,
+                      estimate=est, scores=sc,
+                      best=scoring.best_option(sc, strategy))
+
+
+def scale_down_sim(
+    nodes: NodeTensors,
+    specs: PodGroupTensors,
+    scheduled: ScheduledPodTensors,
+    threshold: float = 0.5,
+    max_pods_per_node: int = 128,
+) -> ScaleDownSim:
+    """Eligibility and the drain sweep with every node as a candidate and
+    every node but the candidate as a destination (verdicts are per
+    candidate in isolation). The sweep sizes its candidate chunks itself
+    (`drain.default_chunk`); chunks never change results."""
+    dev = nodes.cap.device
+    removal = drain.simulate_removals(
+        nodes, specs, scheduled,
+        torch.arange(nodes.n, dtype=torch.int32, device=dev),
+        dest_allowed=torch.ones((nodes.n,), dtype=torch.bool, device=dev),
+        max_pods_per_node=max_pods_per_node)
+    return ScaleDownSim(
+        eligible=utilization.eligible_for_scale_down(nodes, threshold),
+        removal=removal, utilization=utilization.node_utilization(nodes))
+
+
+def run_once_sim(
+    cluster: ClusterTensors,
+    dims: Dims,
+    max_new_nodes: int = 256,
+    strategy: str = "least-waste",
+    threshold: float = 0.5,
+    max_pods_per_node: int = 128,
+) -> tuple[ScaleUpSim, ScaleDownSim]:
+    """A whole RunOnce's simulation content on one snapshot: scale-up and
+    scale-down both on the pre-placement world."""
+    up = scale_up_sim(cluster.nodes, cluster.pending, cluster.scheduled,
+                      cluster.groups, dims, max_new_nodes, strategy)
+    down = scale_down_sim(cluster.nodes, cluster.pending, cluster.scheduled,
+                          threshold, max_pods_per_node)
+    return up, down
 
 
 @dataclass(frozen=True)

@@ -1,16 +1,21 @@
-"""Bit-packed boolean planes: 32 verdicts per int32 word, packed along the
-group axis.
+"""Bit-packed boolean planes: 32 verdicts per int32 word.
 
-Counterpart of the reference package's `ops/bitplane.py` (pack_group_bits,
-unpack_group_bits): `bool[..., G, N] → int32[..., ceil(G/32), N]`, where bit
-`g % 32` of word row `g // 32` is group g's verdict for node lane n. This is
-the mask layout the pack kernel (csrc/pack.cu) reads. Packing is
-little-endian within a word and round-trips bit for bit; words are int32,
-so bit 31 is the sign bit.
+Counterpart of the reference package's `ops/bitplane.py`:
+
+  * `pack_group_bits` / `unpack_group_bits` pack along the group axis,
+    `bool[..., G, N] → int32[..., ceil(G/32), N]`, where bit `g % 32` of word
+    row `g // 32` is group g's verdict for node lane n. This is the mask
+    layout the pack kernels (csrc/pack.cu, csrc/wavefront.cu) read.
+  * `pack_flat_bits` (device) / `unpack_flat_bits_np` (host) pack a flat
+    bool stream; ops/hostfetch moves bool leaves this way, one bit each.
+
+Packing is little-endian within a word and round-trips bit for bit; words
+are int32, so bit 31 is the sign bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD_BITS = 32
@@ -49,3 +54,27 @@ def unpack_group_bits(words: torch.Tensor, g: int) -> torch.Tensor:
     bits = (w[..., :, None, :] >> shifts[:, None]) & 1
     full = bits.reshape(*w.shape[:-2], w.shape[-2] * WORD_BITS, w.shape[-1])
     return full[..., :g, :].to(torch.bool)
+
+
+def pack_flat_bits(flat: torch.Tensor) -> torch.Tensor:
+    """bool[n] → int32[ceil(n/32)] little-endian bit stream (at least one
+    word, as the reference). Bit 31 wraps onto the sign bit as in
+    `pack_group_bits`."""
+    m = flat.to(torch.bool).reshape(-1)
+    n = m.shape[0]
+    nw = words_for(max(n, 1))
+    pad = nw * WORD_BITS - n
+    if pad:
+        m = torch.cat([m, m.new_zeros((pad,))])
+    shifts = torch.arange(WORD_BITS, dtype=torch.int64, device=m.device)
+    words = (m.reshape(nw, WORD_BITS).to(torch.int64) << shifts).sum(dim=1)
+    return words.to(torch.int32)
+
+
+def unpack_flat_bits_np(words: np.ndarray, n: int) -> np.ndarray:
+    """Host inverse of pack_flat_bits: int32 words → bool[n]."""
+    w = np.asarray(words).astype(np.uint32)
+    if n == 0:
+        return np.zeros((0,), bool)
+    bits = (w[:, None] >> np.arange(WORD_BITS, dtype=np.uint32)[None, :]) & 1
+    return bits.reshape(-1)[:n].astype(bool)

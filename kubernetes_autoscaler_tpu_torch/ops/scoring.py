@@ -1,7 +1,7 @@
 """Expander scoring: every strategy's inputs as reductions over the options.
 
 Counterpart of the reference package's `ops/scoring.py` (OptionScores,
-score_options).
+score_options, best_option).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
 )
 from kubernetes_autoscaler_tpu_torch.models.resources import CPU, MEMORY
 from kubernetes_autoscaler_tpu_torch.ops.binpack import EstimateResult
+
+_INF = 3.0e38
 
 # helped_req is a float32 matrix product. On the card PyTorch would be free
 # to run float32 products in TF32 (three decimal digits); the reference
@@ -59,3 +61,25 @@ def score_options(est: EstimateResult, groups: NodeGroupTensors,
     price = nodes.to(torch.float32) * groups.price_per_node
     return OptionScores(valid=valid, pods=pods, nodes=nodes, waste=waste,
                         price=price, helped_req=helped_req)
+
+
+def best_option(scores: OptionScores,
+                strategy: str = "least-waste") -> torch.Tensor:
+    """i32 scalar: index of the winning node group (-1 if no valid option).
+    Ties go to the lowest index. "random" is the deterministic stand-in of
+    the reference: the first valid option."""
+    if strategy == "most-pods":
+        key = -scores.pods.to(torch.float32)
+    elif strategy == "least-nodes":
+        key = scores.nodes.to(torch.float32)
+    elif strategy == "price":
+        key = scores.price
+    elif strategy in ("least-waste", "waste"):
+        key = scores.waste
+    elif strategy == "random":
+        key = torch.zeros_like(scores.waste)
+    else:
+        raise ValueError(f"unknown expander strategy {strategy!r}")
+    key = torch.where(scores.valid, key, _INF)
+    idx = torch.argmin(key).to(torch.int32)
+    return torch.where(scores.valid.any(), idx, -1)

@@ -1,7 +1,8 @@
 """Per-node utilization for scale-down eligibility.
 
-Counterpart of the reference package's `ops/utilization.node_utilization`:
-dominant-resource utilization (max of cpu and memory ratios).
+Counterpart of the reference package's `ops/utilization.py`
+(node_utilization, eligible_for_scale_down): dominant-resource utilization
+(max of cpu and memory ratios) and the threshold screen on it.
 """
 
 from __future__ import annotations
@@ -19,3 +20,11 @@ def node_utilization(nodes: NodeTensors) -> torch.Tensor:
     ratio = alloc / torch.clamp(cap, min=1.0)
     util = torch.maximum(ratio[:, CPU], ratio[:, MEMORY])
     return torch.where(nodes.valid, util, 0.0)
+
+
+def eligible_for_scale_down(nodes: NodeTensors,
+                            threshold: float | torch.Tensor) -> torch.Tensor:
+    """bool[N]: utilization below `threshold` (a scalar or f32[N]) on a
+    valid, ready node."""
+    util = node_utilization(nodes)
+    return nodes.valid & nodes.ready & (util < threshold)

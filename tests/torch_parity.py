@@ -59,7 +59,7 @@ def assert_trees_equal(ref, got, float_rtol: float | None = None,
 
 def build_world(package: str, n_nodes: int = 24, n_pending_groups: int = 6,
                 pods_per_group: int = 5, residents_per_node: int = 2,
-                seed: int = 0, fits: bool = False):
+                seed: int = 0, fits: bool = False, pools: int = 0):
     """(nodes, pods, templates) built with `package`'s own object model.
 
     Nodes carry labels, zones, a dedicated taint on every fifth node and
@@ -67,11 +67,23 @@ def build_world(package: str, n_nodes: int = 24, n_pending_groups: int = 6,
     GPUs, hostPorts, node affinity and self-anti-affinity; every node gets
     `residents_per_node` resident pods, some of them not evictable. With
     `fits`, pending demand is small and unconstrained so every pod fits the
-    existing nodes."""
+    existing nodes.
+
+    With `pools` = k > 0 the cluster is carved into k node pools: node i
+    and template t are labelled pool p{i % k} / p{t % k}, every pending
+    group g and every resident is pinned to one pool by its selector (and
+    node affinity), and each self-anti-affinity group also has one running
+    sibling on its pool's first node — so masks overlap only within a pool
+    (a worthwhile wavefront plan) and the runtime mask is a strict subset of
+    the plan mask."""
     api = importlib.import_module(f"{package}.models.api")
     t = importlib.import_module(f"{package}.utils.testing")
     rng = np.random.RandomState(seed)
     zones = ["za", "zb", "zc"]
+
+    def pool_of(i: int) -> str:
+        return f"p{i % pools}" if pools else ("a" if i % 2 else "b")
+
     nodes = []
     for i in range(n_nodes):
         taints = ([api.Taint("dedicated", "infra", "NoSchedule")]
@@ -79,7 +91,7 @@ def build_world(package: str, n_nodes: int = 24, n_pending_groups: int = 6,
         nodes.append(t.build_test_node(
             f"n{i}", cpu_milli=int(rng.choice([2000, 4000, 8000])),
             mem_mib=int(rng.choice([4096, 8192])), pods=16,
-            labels={"pool": "a" if i % 2 else "b",
+            labels={"pool": pool_of(i),
                     "disk": "ssd" if i % 3 else "hdd"},
             taints=taints, zone=zones[i % 3], gpus=2 if i % 7 == 0 else 0))
     pods = []
@@ -87,10 +99,12 @@ def build_world(package: str, n_nodes: int = 24, n_pending_groups: int = 6,
         for j in range(residents_per_node):
             p = t.build_test_pod(
                 f"r{i}-{j}", cpu_milli=int(rng.choice([200, 400, 800])),
-                mem_mib=256, owner_name=f"rs{(i + j) % 5}", node_name=nd.name)
+                mem_mib=256, owner_name=f"rs{(i + j) % 5}", node_name=nd.name,
+                node_selector={"pool": pool_of(i)} if pools else {})
             if (i + j) % 9 == 0:
                 p.annotations[api.SAFE_TO_EVICT_KEY] = "false"
             pods.append(p)
+    siblings = []
     for g in range(n_pending_groups):
         if fits:
             cpu, mem, sel, tol, gpus, port = 100, 64, {}, [], 0, 0
@@ -103,25 +117,35 @@ def build_world(package: str, n_nodes: int = 24, n_pending_groups: int = 6,
                    if g % 2 == 0 else [])
             gpus = 1 if g % 4 == 1 else 0
             port = 8080 if g % 5 == 4 else 0
-        for i in range(pods_per_group):
+        if pools:
+            sel = {**sel, "pool": pool_of(g)}
+
+        def group_pod(name, node_name="", g=g, cpu=cpu, mem=mem, sel=sel,
+                      tol=tol, gpus=gpus, port=port):
             p = t.build_test_pod(
-                f"p{g}-{i}", cpu_milli=cpu, mem_mib=mem, owner_name=f"prs{g}",
+                name, cpu_milli=cpu, mem_mib=mem, owner_name=f"prs{g}",
                 node_selector=sel, tolerations=tol, gpus=gpus, host_port=port,
-                labels={"app": f"a{g}"})
+                labels={"app": f"a{g}"}, node_name=node_name)
             if not fits and g % 3 == 2:
                 p.required_node_affinity = [api.NodeSelectorRequirement(
-                    "pool", "In", ("a",))]
+                    "pool", "In", (pool_of(g) if pools else "a",))]
             if not fits and g % 4 == 3:
                 p.anti_affinity = [api.AffinityTerm(
                     match_labels={"app": f"a{g}"},
                     topology_key="kubernetes.io/hostname")]
-            pods.append(p)
+            return p
+
+        for i in range(pods_per_group):
+            pods.append(group_pod(f"p{g}-{i}"))
+        if pools and not fits and g % 4 == 3:
+            siblings.append(group_pod(f"s{g}", node_name=f"n{g % pools}"))
+    pods.extend(siblings)
     templates = []
     for k in range(4):
         tmpl = t.build_test_node(
             f"tmpl{k}", cpu_milli=[2000, 4000, 8000, 16000][k],
             mem_mib=[4096, 8192, 16384, 32768][k], pods=16,
-            labels={"pool": "a" if k % 2 else "b",
+            labels={"pool": pool_of(k),
                     "disk": "ssd" if k % 3 else "hdd"},
             zone=zones[k % 3], gpus=2 if k == 3 else 0)
         templates.append((tmpl, 6 + 3 * k, float(1 + k)))
