@@ -67,6 +67,7 @@ STEPS = 100                   # timed steps of the main path
 WAVE_STEPS = 50               # timed steps of each scale_up_sim variant
 PHASED_STEPS = 3              # timed steps of scale_down_sim / run_once_sim
 REPS = 20                     # timed runs per kernel measurement
+HOLD_CYCLES = 2_000_000       # ≈ 1 ms spin, longer than the host takes to enqueue a launch
 
 
 def log(msg: str) -> None:
@@ -80,9 +81,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 3, hold: bool = False) -> float:
     """Median over `reps` runs of fn's time on the card (CUDA events,
-    synchronized after each run), after `warmup` runs."""
+    synchronized after each run), after `warmup` runs. With `hold`, a spin
+    kernel (torch.cuda._sleep) keeps the stream busy while the host
+    enqueues fn, so the events bracket the device work alone; without it
+    they also take in the host's time to launch fn (Python, ctypes, the
+    allocations), during which the device idles."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,6 +95,8 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -110,6 +117,29 @@ def host_ms(fn, steps: int, warmup: int = 2) -> list[float]:
         fn()
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ptxas_report(log_path):
+    """[(kernel, registers, spill line)] from nvcc's -Xptxas -v output; a
+    template instance is named by its arguments (<1, 1, 1>)."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)", sym)
+            args = re.findall(r"L[ib](\d+)E", sym)
+            name = (k.group(1) if k else sym) + (
+                f"<{', '.join(args)}>" if args else "")
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((name, int(regs), spills))
+            name = None
     return out
 
 
@@ -270,51 +300,7 @@ def compare_cpu_card(name, cpu_tree, card_tree) -> tuple[int, float]:
     return len(c_leaves), worst
 
 
-# ---------------------------------------------------------------- K1 cases
-
-
-def pack_case(seed, b, g, n, r=8, max_count=3000, zero_req=True,
-              limit_share=0.2, mask_p=0.8, device=None):
-    """Seeded pack inputs on `device` (default DEVICE)."""
-    from kubernetes_autoscaler_tpu_torch.ops.pack import ffd_order
-
-    rng = np.random.default_rng(seed)
-    free = torch.from_numpy(rng.integers(0, 40, size=(b, n, r)).astype(np.int32))
-    req = torch.from_numpy(rng.integers(0, 6, size=(g, r)).astype(np.int32))
-    if zero_req:
-        req[0] = 0
-    count = torch.from_numpy(rng.integers(0, max_count, size=(g,)).astype(np.int32))
-    mask = torch.from_numpy(rng.random((b, g, n)) < mask_p)
-    limit_one = torch.from_numpy(rng.random((g,)) < limit_share)
-    order = ffd_order(req, torch.ones((g,), dtype=torch.bool))
-    return [a.to(device or DEVICE)
-            for a in (free, mask, req, count, order, limit_one)]
-
-
-def pack_cases(device=None):
-    device = device or DEVICE
-
-    def case(*a, **kw):
-        return pack_case(*a, device=device, **kw)
-
-    cases = [(f"option shape B=20 G=64 N=1024, seed {s}", case(s, 20, 64, 1024))
-             for s in range(3)]
-    cases.append(("filter shape B=1 G=64 N=5120", case(3, 1, 64, 5120)))
-    z = case(4, 2, 3, 200)
-    z[0].zero_()
-    z[2].zero_()
-    z[3] = torch.tensor([7, 0, 2 ** 30], dtype=torch.int32, device=device)
-    cases.append(("zero-request groups on empty nodes", z))
-    cases.append(("limit_one groups", case(5, 4, 16, 700, limit_share=1.0)))
-    b31 = case(6, 2, 32, 300)
-    b31[1].zero_()
-    b31[1][:, 31, :] = True
-    cases.append(("only group 31 (the sign bit) feasible", b31))
-    cases.append(("G=33 (two mask words)", case(7, 3, 33, 512)))
-    cases.append(("N=1031, not a multiple of the block", case(8, 2, 12, 1031)))
-    cases.append(("N=40, less than one warp per lane", case(9, 1, 5, 40)))
-    cases.append(("N=8192: free plane in device memory", case(10, 2, 40, 8192)))
-    return cases
+# ---------------------------------------------------------------- K1 checks
 
 
 def pack_bound(launch_args, mask):
@@ -615,43 +601,60 @@ def main_phase(args, dims, kernel, plain):
     option_args, _ = option_pack_inputs(resident.specs, capped, dims,
                                         MAX_NEW_NODES)
     shapes = {"filter": filter_args, "options": list(option_args)}
-    ms = plain_ms = bound_ms = 0.0
+    ms = device_ms = plain_ms = bound_ms = 0.0
     bound_by = "bytes"
     max_err = 0
     for name, a in shapes.items():
         max_err = max(max_err, check_pack(f"main-path {name} inputs", a,
                                           kernel, plain))
-        k_ms, depth_ms, w_ms, p_ms, bnd, by = k1_times(a, kernel, plain)
+        t = k1_times(a, kernel, plain)
         b, n, r = a[0].shape
         log(f"[kernels] pack_groups_batched {name} B={b} G={a[2].shape[0]} "
-            f"N={n} R={r}: kernel {k_ms} ms, kernel with no lane fitting "
-            f"(serial depth) {depth_ms} ms, wrapper with mask packing "
-            f"{w_ms} ms, plain {p_ms} ms, "
-            f"bound {bnd} ms ({by})")
-        ms, plain_ms, bound_ms = ms + k_ms, plain_ms + p_ms, bound_ms + bnd
-        if by == "operations":
-            bound_by = by
-    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by}
+            f"N={n} R={r} (at most {t['live_groups']} live groups a row): "
+            f"{k1_line(t)}")
+        ms, device_ms = ms + t["launch"], device_ms + t["kernel"]
+        plain_ms += t["plain"]
+        bound_ms += t["bound"]
+        if t["bound_by"] == "operations":
+            bound_by = "operations"
+    entry = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
     return (enc, groups), launches, entry, max_err
 
 
 def k1_times(a, kernel, plain):
-    """K1's kernel, serial-depth, wrapper and plain ms and bound on the
-    wrapper arguments `a` (free, mask, req, count, order, limit_one)."""
+    """K1's times on the wrapper arguments `a` (free, mask, req, count,
+    order, limit_one): the kernel's device time, as launched from Python,
+    with every mask bit clear (serial depth) and with the free plane zero
+    (live-group depth); the wrapper's and the plain version's time; the
+    bound; the most live groups of a row."""
     from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
 
     bits = (a[0], pack_group_bits(a[1]), *a[2:5], a[5].to(torch.int32))
-    k_ms = cuda_ms(lambda: pack_kernel.launch(*bits), REPS)
-    # the same launch with every mask bit clear: no lane fits, so what is
-    # left is the design's serial depth (G block scans and the writes)
+    t = {"kernel": cuda_ms(lambda: pack_kernel.launch(*bits), REPS, hold=True),
+         "launch": cuda_ms(lambda: pack_kernel.launch(*bits), REPS)}
+    # every mask bit clear: no lane fits, so no group with a positive count
+    # is live; what is left is the staging, the dead rows and negative counts
     no_fit = (bits[0], torch.zeros_like(bits[1]), *bits[2:])
-    depth_ms = cuda_ms(lambda: pack_kernel.launch(*no_fit), REPS)
-    w_ms = cuda_ms(lambda: kernel(*a), REPS)
-    p_ms = cuda_ms(lambda: plain(*a), REPS)
-    bnd, by = pack_bound(bits, a[1])
-    return k_ms, depth_ms, w_ms, p_ms, bnd, by
+    t["depth"] = cuda_ms(lambda: pack_kernel.launch(*no_fit), REPS, hold=True)
+    # the free plane zero: every group with a count and a mask bit stays
+    # live and takes its scan and barrier, but no lane has room for a request
+    no_room = (torch.zeros_like(bits[0]), *bits[1:])
+    t["live"] = cuda_ms(lambda: pack_kernel.launch(*no_room), REPS, hold=True)
+    t["wrapper"] = cuda_ms(lambda: kernel(*a), REPS)
+    t["plain"] = cuda_ms(lambda: plain(*a), REPS)
+    t["bound"], t["bound_by"] = pack_bound(bits, a[1])
+    t["live_groups"] = int(((a[3] > 0)[None, :] & a[1].any(dim=2)).sum(dim=1).max())
+    return t
+
+
+def k1_line(t) -> str:
+    return (f"kernel {t['kernel']} ms (device time; {t['launch']} ms as "
+            f"launched from Python), every mask bit clear (serial depth) "
+            f"{t['depth']} ms, free plane zero (live-group depth) {t['live']} "
+            f"ms, wrapper with mask packing {t['wrapper']} ms, plain "
+            f"{t['plain']} ms, bound {t['bound']} ms ({t['bound_by']})")
 
 
 def wavefront_phase(dims, main_world):
@@ -780,9 +783,11 @@ def wavefront_phase(dims, main_world):
                          k2, wavefront_kernel.pack_groups_wavefront_plain)
     bits = (free, pack_group_bits(mask), req, count,
             limit_one.to(torch.int32), plan.waves)
-    k_ms = cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS)
+    k_ms = cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS, hold=True)
+    launch_ms = cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS)
     no_fit = (free, torch.zeros_like(bits[1]), *bits[2:])
-    depth_ms = cuda_ms(lambda: wavefront_kernel.launch(*no_fit), REPS)
+    depth_ms = cuda_ms(lambda: wavefront_kernel.launch(*no_fit), REPS,
+                       hold=True)
     w_ms = cuda_ms(lambda: k2(*a), REPS)
     p_ms = cuda_ms(lambda: wavefront_kernel.pack_groups_wavefront_plain(*a),
                    REPS)
@@ -790,7 +795,8 @@ def wavefront_phase(dims, main_world):
     n, r = free.shape
     log(f"[kernels] pack_groups_wavefront filter G={req.shape[0]} N={n} R={r} "
         f"waves {tuple(plan.waves.shape)} (W={plan.n_waves}): kernel {k_ms} "
-        f"ms, kernel with no lane fitting (serial depth) {depth_ms} ms, "
+        f"ms (device time; {launch_ms} ms as launched from Python), kernel "
+        f"with no lane fitting (serial depth) {depth_ms} ms, "
         f"wrapper with checks and mask packing {w_ms} ms, plain {p_ms} ms, "
         f"bound {bnd} ms ({by})")
     k1_args = [free[None].contiguous(), mask[None].contiguous(), req, count,
@@ -798,13 +804,12 @@ def wavefront_phase(dims, main_world):
     max_err = max(max_err, check_pack("partitioned-world filter inputs",
                                       k1_args, k1,
                                       pack_kernel.pack_groups_batched_plain))
-    k1_ms, k1_depth, k1_w, _, k1_bnd, _ = k1_times(
-        k1_args, k1, pack_kernel.pack_groups_batched_plain)
+    t = k1_times(k1_args, k1, pack_kernel.pack_groups_batched_plain)
     log(f"[kernels] pack_groups_batched on the same inputs (B=1, "
-        f"G={req.shape[0]} serial groups): kernel {k1_ms} ms, serial depth "
-        f"{k1_depth} ms, wrapper {k1_w} ms, bound {k1_bnd} ms; K2 / K1 kernel "
-        f"time {k_ms / k1_ms}")
-    entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by}
+        f"G={req.shape[0]} serial groups, {t['live_groups']} live): "
+        f"{k1_line(t)}; K2 / K1 kernel time {k_ms / t['kernel']}")
+    entry = {"ms": launch_ms, "device_ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bnd, "bound_by": by}
     return counts[1], entry, max_err
 
 
@@ -910,6 +915,7 @@ def main() -> int:
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
         build,
+        pack_cases,
         pack_kernel,
         wavefront_kernel,
     )
@@ -925,10 +931,9 @@ def main() -> int:
     libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE])
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for lib in libs.values():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {lib.name}: {line.strip()}")
+    for source, lib in libs.items():
+        for name, regs, spills in ptxas_report(lib.with_suffix(".log")):
+            log(f"[build] {source} {name}: {regs} registers, {spills}")
 
     k1, k1_plain = (pack_kernel.pack_groups_batched,
                     pack_kernel.pack_groups_batched_plain)
@@ -937,8 +942,9 @@ def main() -> int:
 
     # 3. kernels against their plain versions on seeded cases
     k1_err = k2_err = 0
-    for name, case in pack_cases():
-        k1_err = max(k1_err, check_pack(name, case, k1, k1_plain))
+    for name, case in pack_cases.CASES.items():
+        k1_err = max(k1_err, check_pack(
+            name, [a.to(DEVICE) for a in case()], k1, k1_plain))
     for name, case in wave_cases():
         k2_err = max(k2_err, check_wave(name, case, k2, k2_plain))
 
@@ -954,7 +960,9 @@ def main() -> int:
     # 7. CPU against the card at 512 nodes
     cpu_card_phase(dims)
 
-    # 8. result
+    # 8. result: `ms` is the kernel as launched from Python (CUDA events
+    # around the launch call, the host's enqueue included), `device_ms` the
+    # same launch with the stream held while the host enqueues it
     kernels = [{
         "name": "pack_groups_batched",
         "route": "cuda",

@@ -3,8 +3,9 @@ PyTorch version.
 
 Replaces the reference package's `ops/pallas/pack_kernel.py`
 (`pack_groups_batched`, whose body is the Pallas `_pack_kernel`). The
-kernel itself is `csrc/pack.cu`; its header says what bounds it and how the
-one-CTA-per-batch-row design answers that.
+kernel itself is `csrc/pack.cu`; its header says what bounds it and how its
+design answers that (one CTA per batch row, coalesced lanes, dead groups
+skipped, one barrier per live group).
 
 The device of the tensors decides: CPU tensors go through
 `pack_groups_batched_plain`, CUDA tensors through the kernel, and anything

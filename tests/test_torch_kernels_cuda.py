@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from kubernetes_autoscaler_tpu_torch.ops import pack
-from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel, wavefront_kernel
+from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+    pack_cases,
+    pack_kernel,
+    wavefront_kernel,
+)
 
 
 @pytest.fixture
@@ -23,23 +27,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _instance(seed, b, g, n, r=8, max_count=3000):
-    rng = np.random.default_rng(seed)
-    free = torch.from_numpy(rng.integers(0, 40, size=(b, n, r)).astype(np.int32))
-    req = torch.from_numpy(rng.integers(0, 6, size=(g, r)).astype(np.int32))
-    req[0] = 0                                     # a zero-request group
-    count = torch.from_numpy(rng.integers(0, max_count, size=(g,)).astype(np.int32))
-    mask = torch.from_numpy(rng.random((b, g, n)) < 0.8)
-    limit_one = torch.from_numpy(rng.random((g,)) < 0.2)
-    order = pack.ffd_order(req, torch.ones((g,), dtype=torch.bool))
-    return free, mask, req, count, order, limit_one
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,g,n", [(1, 5, 40), (3, 33, 1031), (20, 64, 1024),
                                    (1, 64, 5120), (2, 40, 8192)])
 def test_pack_kernel_matches_plain(cuda, b, g, n):
-    args = _instance(b * 1000 + n, b, g, n)
+    args = pack_cases.pack_case(b * 1000 + n, b, g, n)
     want = pack_kernel.pack_groups_batched_plain(*args)
     before = pack_kernel.pack_groups_batched.launches
     got = pack_kernel.pack_groups_batched(*[a.to(cuda) for a in args])
@@ -50,9 +42,20 @@ def test_pack_kernel_matches_plain(cuda, b, g, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(pack_cases.CASES))
+def test_pack_kernel_edge_cases(cuda, name):
+    args = pack_cases.CASES[name]()
+    want = pack_kernel.pack_groups_batched_plain(*args)
+    got = pack_kernel.pack_groups_batched(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    for field in ("placed", "scheduled", "free_after"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+@pytest.mark.cuda
 def test_pack_kernel_rejects_what_it_does_not_take(cuda):
     free, mask, req, count, order, limit_one = [
-        a.to(cuda) for a in _instance(0, 2, 4, 64)]
+        a.to(cuda) for a in pack_cases.pack_case(0, 2, 4, 64)]
     with pytest.raises(TypeError):
         pack_kernel.pack_groups_batched(free.long(), mask, req, count, order,
                                         limit_one)
