@@ -29,7 +29,27 @@ its own failure:
                 (fused and run_once_sim on the residents world, scale_up_sim
                 with the plan on the partitioned world): every integer and
                 bool leaf byte-equal, float leaves within rtol 1e-5
-  8. result     the kernels line, the card line, and the last line
+  8. loop       the control loop, `StaticAutoscaler.run_once`, on the card
+                at bench.py bench_runonce_e2e's world and options (5,000
+                nodes with 2 residents each, 50,000 pending pods in 25
+                owner groups; per loop 500 pods churned and 50 bound, a
+                200-pod 14,000m burst every fourth loop): one cold loop,
+                then 8 timed loops — loop times, phase totals, per loop the
+                fused mode, speculation outcome, round trips, encode mode,
+                world-store h2d bytes, K1 launches, the host time of the
+                speculative dispatch and how long the device stayed busy
+                with a discarded speculative program; K1 on the loop's
+                inputs against its plain version; with --profile the
+                host side of 4 more loops under cProfile (the functions by
+                cumulative and by own time; the stats go to
+                DIR/loop.pstats) and one loop under torch.profiler (device
+                kernels, their time, and the device's busy share of that
+                loop's own wall time)
+  9. loop-cpu-card  the same churn script on a 512-node world, 8 loops on
+                the CPU and 8 on the card: every loop's decision-surface
+                digests, fused mode, speculation outcome and round trips
+                equal
+ 10. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -67,6 +87,15 @@ STEPS = 100                   # timed steps of the main path
 WAVE_STEPS = 50               # timed steps of each scale_up_sim variant
 PHASED_STEPS = 3              # timed steps of scale_down_sim / run_once_sim
 REPS = 20                     # timed runs per kernel measurement
+# the control loop's world: bench.py bench_runonce_e2e at its defaults
+LOOP_NODES = 5000
+LOOP_PODS = 50000
+LOOP_POD_GROUPS = 25
+LOOP_CHURN = 500              # pods removed and added before each loop
+LOOP_BINDS = 50               # of those, bound to a node by the "kubelet"
+LOOP_BURST = 200              # 14,000m pods on loops where loop % 4 == 2
+LOOP_STEPS = 8                # timed loops after the cold one
+LOOP_SMALL_NODES = 512        # the CPU-vs-card loop world
 HOLD_CYCLES = 2_000_000       # ≈ 1 ms spin, longer than the host takes to enqueue a launch
 
 
@@ -897,13 +926,321 @@ def cpu_card_phase(dims):
             f"difference {worst:.3g}")
 
 
+# ---------------------------------------------------------------- loop
+
+
+def loop_world(n_nodes, n_pods):
+    """bench.py bench_runonce_e2e's FakeCluster: nodes of 16 CPU / 64 GiB /
+    110 pods with two residents each (1,600m on the first 1/16 of the
+    nodes, a low-utilization band, 3,200m elsewhere; owners rs0..rs16),
+    and `n_pods` pending pods of 500m / 512 MiB in LOOP_POD_GROUPS owner
+    groups."""
+    from kubernetes_autoscaler_tpu_torch.utils.fakecluster import FakeCluster
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    fake = FakeCluster()
+    tmpl = build_test_node("tmpl", cpu_milli=16000, mem_mib=65536, pods=110)
+    fake.add_node_group("ng1", tmpl, min_size=0, max_size=4 * n_nodes)
+    for i in range(n_nodes):
+        nd = build_test_node(f"n{i}", cpu_milli=16000, mem_mib=65536,
+                             pods=110)
+        fake.add_existing_node("ng1", nd)
+        per_pod = 1600 if i < n_nodes // 16 else 3200
+        for j in range(2):
+            fake.add_pod(build_test_pod(
+                f"r{i}-{j}", cpu_milli=per_pod, mem_mib=1024,
+                owner_name=f"rs{i % 17}", node_name=nd.name))
+    for i in range(n_pods):
+        fake.add_pod(build_test_pod(f"p{i}", cpu_milli=500, mem_mib=512,
+                                    owner_name=f"prs{i % LOOP_POD_GROUPS}"))
+    return fake
+
+
+def loop_autoscaler(fake, device, capture_verdicts=False):
+    from kubernetes_autoscaler_tpu_torch.config.options import (
+        AutoscalingOptions,
+        NodeGroupDefaults,
+    )
+    from kubernetes_autoscaler_tpu_torch.core.static_autoscaler import (
+        StaticAutoscaler,
+    )
+    from kubernetes_autoscaler_tpu_torch.metrics.metrics import Registry
+
+    opts = AutoscalingOptions(
+        node_shape_bucket=256, group_shape_bucket=64,
+        max_new_nodes_static=256, max_pods_per_node=16, drain_chunk=256,
+        node_group_defaults=NodeGroupDefaults(
+            scale_down_unneeded_time_s=3600.0,
+            scale_down_unready_time_s=3600.0))
+    a = StaticAutoscaler(fake.provider, fake, options=opts,
+                         eviction_sink=fake, registry=Registry(),
+                         device=device)
+    # the verdict plane feeds the decision digests of [loop-cpu-card]; the
+    # timed loops run without it, as bench_runonce_e2e does
+    a.capture_verdicts = capture_verdicts
+    return a
+
+
+class LoopScript:
+    """bench_runonce_e2e's churn: before each loop LOOP_CHURN pending pods
+    leave and as many arrive, LOOP_BINDS of the new ones are bound; a
+    LOOP_BURST-pod unfittable burst arrives before loops where loop % 4 ==
+    2 and leaves after loops where loop % 4 == 3."""
+
+    def __init__(self, fake, n_nodes, n_pods):
+        self.fake, self.n_nodes, self.n_pods = fake, n_nodes, n_pods
+        self.seq = self.burst = 0
+
+    def before(self, loop):
+        from kubernetes_autoscaler_tpu_torch.utils.testing import (
+            build_test_pod,
+        )
+
+        churn = min(LOOP_CHURN, self.n_pods)
+        for k in range(churn):
+            self.fake.remove_pod(f"p{self.seq + k}")
+            self.fake.add_pod(build_test_pod(
+                f"p{self.n_pods + self.seq + k}", cpu_milli=500, mem_mib=512,
+                owner_name=f"prs{(self.seq + k) % LOOP_POD_GROUPS}"))
+        for k in range(min(LOOP_BINDS, churn)):
+            self.fake.bind(f"p{self.n_pods + self.seq + k}",
+                           f"n{(self.seq + k) % self.n_nodes}")
+        self.seq += churn
+        if loop % 4 == 2:
+            self.burst += 1
+            for k in range(LOOP_BURST):
+                self.fake.add_pod(build_test_pod(
+                    f"burst{self.burst}-{k}", cpu_milli=14000, mem_mib=4096,
+                    owner_name=f"burst-rs{self.burst}"))
+
+    def after(self, loop):
+        if loop % 4 == 3 and self.burst:
+            for k in range(LOOP_BURST):
+                self.fake.remove_pod(f"burst{self.burst}-{k}")
+
+
+def loop_surfaces(a, st) -> dict:
+    from kubernetes_autoscaler_tpu_torch.replay import journal
+
+    return {"digests": journal.surface_digests(
+                journal.collect_outputs(a, st)),
+            "fused_mode": st.fused_mode, "speculation": st.speculation,
+            "round_trips": st.loop_device_round_trips}
+
+
+def loop_phase(card, dims, kernel, plain, profile_dir=None):
+    """Phase 8: the control loop on the card at the bench_runonce_e2e
+    world, then, with `profile_dir`, the loop's profile. Returns (K1
+    launches in the timed loops, per-loop launches, max abs err of K1 on
+    the loop's inputs)."""
+    from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
+    from kubernetes_autoscaler_tpu_torch.ops.schedule import filter_pack_inputs
+
+    t0 = time.perf_counter()
+    fake = loop_world(LOOP_NODES, LOOP_PODS)
+    a = loop_autoscaler(fake, DEVICE)
+    log(f"[loop] world built in {time.perf_counter() - t0:.1f} s: "
+        f"{LOOP_NODES} nodes, {2 * LOOP_NODES} residents, {LOOP_PODS} pending "
+        f"pods in {LOOP_POD_GROUPS} groups ({card})")
+    script = LoopScript(fake, LOOP_NODES, LOOP_PODS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = a.run_once(now=1000.0)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    log(f"[loop] cold loop {cold_s} s: fused_mode {st.fused_mode}, encode "
+        f"{a._world_store.last_mode}/{a._world_store.last_cause}, pending "
+        f"{st.pending_pods} ({card})")
+    a.planner.phases.reset()
+    compiles = a.metrics.counter("fused_program_compiles_total").value()
+    hist = a.metrics.histogram("function_duration_seconds")
+    spec_key = (("function", "speculative_dispatch"),)
+    sums0 = {k[0][1]: v for k, v in hist._sums.items()}
+    torch.cuda.reset_peak_memory_stats()
+    side = torch.cuda.Stream()
+    ms, rows = [], []
+    pack_kernel.pack_groups_batched.launches = 0
+    for loop in range(LOOP_STEPS):
+        script.before(loop)
+        armed = a._speculation is not None
+        # the discarded-speculation wait: an event on an idle side stream
+        # fires as the loop begins, one on the loop's stream fires once the
+        # speculative program queued ahead of the loop has finished
+        e_begin = torch.cuda.Event(enable_timing=True)
+        e_free = torch.cuda.Event(enable_timing=True)
+        e_begin.record(side)
+        e_free.record(torch.cuda.current_stream())
+        k0 = pack_kernel.pack_groups_batched.launches
+        s0 = hist._sums.get(spec_key, 0.0)
+        t0 = time.perf_counter()
+        st = a.run_once(now=1010.0 + 10.0 * loop)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        spec_issue_ms = (hist._sums.get(spec_key, 0.0) - s0) * 1e3
+        e_free.synchronize()
+        busy = e_begin.elapsed_time(e_free) if armed else 0.0
+        rows.append({
+            "loop": loop, "ms": ms[-1], "fused_mode": st.fused_mode,
+            "speculation": st.speculation,
+            "round_trips": st.loop_device_round_trips,
+            "encode": f"{a._world_store.last_mode}/{a._world_store.last_cause}",
+            "h2d_bytes": a._world_store.last_h2d_bytes,
+            "k1_launches": pack_kernel.pack_groups_batched.launches - k0,
+            "spec_busy_ms": busy, "spec_issue_ms": spec_issue_ms,
+            "scaled_up": bool(st.scale_up is not None
+                              and st.scale_up.scaled_up),
+            "pending": st.pending_pods, "unneeded": len(st.unneeded_nodes)})
+        script.after(loop)
+    torch.cuda.synchronize()
+    launches = pack_kernel.pack_groups_batched.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    for r in rows:
+        log(f"[loop] loop {r['loop']}: {r['ms']} ms, fused_mode "
+            f"{r['fused_mode']}, speculation {r['speculation']}, round trips "
+            f"{r['round_trips']}, encode {r['encode']}, world-store h2d "
+            f"{r['h2d_bytes']} B, K1 launches {r['k1_launches']}, "
+            f"speculative dispatch issued in {r['spec_issue_ms']} ms of host "
+            f"time, device busy "
+            f"with the {'discarded' if r['speculation'] == 'discard' else 'harvested' if r['speculation'] == 'hit' else 'no'}"
+            f" speculative program for {r['spec_busy_ms']} ms after the loop "
+            f"began, scaled up {r['scaled_up']}, pending {r['pending']}, "
+            f"unneeded {r['unneeded']} ({card})")
+    log(f"[loop] loop ms over {LOOP_STEPS} loops: p50 {pct(ms, 50)} p90 "
+        f"{pct(ms, 90)} ({card})")
+    sums = {k[0][1]: v - sums0.get(k[0][1], 0.0)
+            for k, v in hist._sums.items()}
+    total = sum(ms) / 1e3
+    for name in ("snapshot_build", "fused_dispatch", "fused_harvest",
+                 "filter_out_schedulable", "scale_up", "scale_down_update",
+                 "scale_down_confirm", "speculative_dispatch", "main"):
+        v = sums.get(name, 0.0)
+        log(f"[loop] phase {name} total {v} s over {LOOP_STEPS} loops "
+            f"({100.0 * v / total:.1f} % of the loops' time) ({card})")
+    log(f"[loop] planner phases: "
+        f"{json.dumps(a.planner.phases.snapshot()['totals_ms'])} ({card})")
+    log(f"[loop] peak device memory allocated: {peak_mib:.1f} MiB; K1 "
+        f"launches {launches} in {LOOP_STEPS} loops ({card})")
+    if any(r["fused_mode"] != "fused" for r in rows):
+        raise AssertionError("a loop of the default options ran phased")
+    if any(r["round_trips"] > 2 for r in rows):
+        raise AssertionError("a fused loop took more than 2 round trips")
+    if not any(r["scaled_up"] for r in rows):
+        raise AssertionError("no loop scaled up for the burst")
+    if launches == 0:
+        raise AssertionError("the loop launched K1 no time")
+    if a.metrics.counter("fused_program_compiles_total").value() != compiles:
+        raise AssertionError("the kernel build cache grew after the cold "
+                             "loop")
+
+    # K1 on the inputs the loop's last fused dispatch gave it
+    ctx = a._fused_ctx
+    nodes_t, specs_t, sched_t, _ = ctx["inputs"]
+    prep = ctx["prep"]
+    filter_args = [x[None].contiguous() if i < 2 else x for i, x in
+                   enumerate(filter_pack_inputs(nodes_t, specs_t, sched_t))]
+    capped = prep.group_tensors.replace(max_new=torch.minimum(
+        prep.group_tensors.max_new, prep.limit_cap_dev))
+    option_args, _ = option_pack_inputs(ctx["resident"].specs, capped, dims,
+                                        a.options.max_new_nodes_static)
+    err = max(check_pack("loop-path filter inputs", filter_args, kernel,
+                         plain),
+              check_pack("loop-path options inputs", list(option_args),
+                         kernel, plain))
+    if profile_dir:
+        profile_loop(card, a, script, LOOP_STEPS, profile_dir)
+    return launches, [r["k1_launches"] for r in rows], err
+
+
+def loop_cpu_card_phase(card):
+    """Phase 9: the churn script on a 512-node world, CPU against card."""
+    pods = LOOP_PODS * LOOP_SMALL_NODES // LOOP_NODES
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        fake = loop_world(LOOP_SMALL_NODES, pods)
+        a = loop_autoscaler(fake, dev, capture_verdicts=True)
+        script = LoopScript(fake, LOOP_SMALL_NODES, pods)
+        rows = []
+        for loop in range(LOOP_STEPS):
+            script.before(loop)
+            st = a.run_once(now=1000.0 + 10.0 * loop)
+            rows.append(loop_surfaces(a, st))
+            script.after(loop)
+        runs[dev] = rows
+    for loop, (c, g) in enumerate(zip(runs["cpu"], runs[DEVICE])):
+        if c != g:
+            raise AssertionError(f"[loop-cpu-card] loop {loop}: CPU {c} vs "
+                                 f"card {g}")
+        log(f"[loop-cpu-card] loop {loop}: digests equal CPU vs card "
+            f"({', '.join(f'{k} {v}' for k, v in c['digests'].items())}), "
+            f"fused_mode {c['fused_mode']}, speculation {c['speculation']}, "
+            f"round trips {c['round_trips']} ({card})")
+
+
+def profile_loop(card, a, script, first, out_dir):
+    """The loop's profile under --profile: loops `first` .. `first` + 3 of
+    the churn script under cProfile, then one more under torch.profiler."""
+    import cProfile
+    import io
+    import os
+    import pstats
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    for loop in range(first, first + 4):
+        script.before(loop)
+        t0 = time.perf_counter()
+        prof.enable()
+        a.run_once(now=1010.0 + 10.0 * loop)
+        prof.disable()
+        log(f"[profile] loop {loop} under cProfile: "
+            f"{(time.perf_counter() - t0) * 1e3} ms ({card})")
+        script.after(loop)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.dump_stats(os.path.join(out_dir, "loop.pstats"))
+    for key, n in (("cumulative", 60), ("tottime", 40)):
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats(key).print_stats(n)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"[profile] loop {key} {line}")
+    loop = first + 4
+    script.before(loop)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        a.run_once(now=1010.0 + 10.0 * loop)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = defaultdict(lambda: [0, 0.0])
+    for ev in tp.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name][0] += 1
+            by_name[ev.name][1] += ev.time_range.elapsed_us() / 1e3
+    kernels = sum(c for c, _ in by_name.values())
+    busy_ms = sum(t for _, t in by_name.values())
+    script.after(loop)
+    log(f"[profile] one loop under torch.profiler: {wall_ms} ms wall, "
+        f"{kernels} device kernels, {busy_ms} ms of kernel time, busy share "
+        f"of that loop's wall time {busy_ms / wall_ms} ({card})")
+    for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+        log(f"[profile] loop {t} ms {c:6d}x {name[:110]}")
+
+
 # ---------------------------------------------------------------- main
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one fused step; the trace goes to DIR")
+                    help="also profile one fused step and the control loop "
+                         "(host and device); traces and stats go to DIR")
     args = ap.parse_args()
 
     # 1. device
@@ -959,8 +1296,14 @@ def main() -> int:
     phased_phase(dims, world)
     # 7. CPU against the card at 512 nodes
     cpu_card_phase(dims)
+    # 8. the control loop at the bench_runonce_e2e world
+    loop_launches, loop_per_loop, err = loop_phase(card, dims, k1, k1_plain,
+                                                   args.profile)
+    k1_err = max(k1_err, err)
+    # 9. the control loop, CPU against the card at 512 nodes
+    loop_cpu_card_phase(card)
 
-    # 8. result: `ms` is the kernel as launched from Python (CUDA events
+    # 10. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{
@@ -975,6 +1318,8 @@ def main() -> int:
         "checked": True,
         "shapes": "run_once_fused: filter B=1 + options B=NG per step; "
                   "ms are per step",
+        "loop_launches": loop_launches,
+        "loop_launches_per_loop": loop_per_loop,
     }, {
         "name": "pack_groups_wavefront",
         "route": "cuda",

@@ -8,7 +8,7 @@ SURVEY.md §7): resources, labels, selectors, taints/tolerations, affinity,
 ports, topology keys, ownership/priority/annotations for drain classification.
 
 These objects are the *boundary* format; they are encoded once per loop into
-dense tensors (models/encode.py) and never consulted by the device code.
+dense tensors (models/encode.py) and never consulted inside jitted code.
 """
 
 from __future__ import annotations
@@ -18,16 +18,22 @@ from typing import Optional
 
 # Taint effects (reference: k8s core/v1; consumed by TaintToleration filter).
 NO_SCHEDULE = "NoSchedule"
+PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
 
 # Well-known annotations the reference acts on
 # (cluster-autoscaler/utils/drain/drain.go, simulator/drainability/rules/).
 SAFE_TO_EVICT_KEY = "cluster-autoscaler.kubernetes.io/safe-to-evict"
-# The taint CA itself places on nodes it deletes (reference: utils/taints/taints.go).
+SCALE_DOWN_DISABLED_KEY = "cluster-autoscaler.kubernetes.io/scale-down-disabled"
+# Taints CA itself places (reference: utils/taints/taints.go).
 TO_BE_DELETED_TAINT = "ToBeDeletedByClusterAutoscaler"
+DELETION_CANDIDATE_TAINT = "DeletionCandidateOfClusterAutoscaler"
 # Set by lowering passes (DRA selectored claims, shared claims) whose
 # constraint is not dense-encodable: forces the winner-verification tier.
 HOST_CHECK_ANNOTATION = "autoscaler.x-k8s.io/host-check"
+# which lowering pass set host-check (each clears only its own mark)
+DRA_LOSSY_ANNOTATION = "autoscaler.x-k8s.io/host-check-dra"
+CSI_LOSSY_ANNOTATION = "autoscaler.x-k8s.io/host-check-csi"
 
 # Well-known topology keys (k8s core/v1). The dense encoding supports these
 # two domain kinds; other topology keys route through the host-check tier.
@@ -188,6 +194,22 @@ class Pod:
         return out
 
 
+def is_recreatable(pod: "Pod") -> bool:
+    """Will this pod's controller recreate it after an eviction?
+    (reference: utils/pod/pod.go:65 FilterRecreatablePods — skip static,
+    mirror and DaemonSet pods, including the
+    cluster-autoscaler.kubernetes.io/daemonset-pod annotation form)."""
+    if pod.is_mirror():
+        return False
+    src = pod.annotations.get("kubernetes.io/config.source")
+    if src is not None and src != "api":     # static pod (IsStaticPod)
+        return False
+    if pod.is_daemonset() or pod.annotations.get(
+            "cluster-autoscaler.kubernetes.io/daemonset-pod") == "true":
+        return False
+    return True
+
+
 def labels_match(selector: dict[str, str], labels: dict[str, str]) -> bool:
     """match_labels subset test. An EMPTY selector matches no pods — both the
     spread and affinity encodings treat {} as 'selects nothing'."""
@@ -223,6 +245,22 @@ def term_matches_pod(term: AffinityTerm, pod: "Pod", other: "Pod",
         return labels_match(term.match_labels, other.labels)
     scope = term.namespaces or (pod.namespace,)
     return other.namespace in scope and labels_match(term.match_labels, other.labels)
+
+
+@dataclass
+class Workload:
+    """A replica-controller-shaped object (Deployment/ReplicaSet/Job/...).
+
+    Consumed by processors/podinjection (reference: processors/podinjection
+    reads Deployments/Jobs/ReplicaSets via listers) and by capacity-buffer
+    scalable references (reference: capacitybuffer scalableRef translators)."""
+
+    kind: str
+    name: str
+    namespace: str = "default"
+    uid: str = ""
+    replicas: int = 0
+    template: Optional[Pod] = None
 
 
 @dataclass

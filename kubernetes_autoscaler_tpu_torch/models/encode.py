@@ -63,8 +63,11 @@ _KEY_MARK = "\x01"
 
 def _tensors(cls, device, **arrays):
     """Build one of the port's tensor dataclasses from host numpy arrays on
-    `device` (the reference's `_device` seam, which ships jnp arrays)."""
-    return cls(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+    `device` (the reference's `_device` seam, which ships jnp arrays). Each
+    tensor is a copy: on the CPU `torch.from_numpy(v).to("cpu")` would alias
+    `v`, and the incremental encoder edits its host arrays in place."""
+    return cls(**{k: torch.from_numpy(v).to(device, copy=True)
+                  for k, v in arrays.items()})
 
 
 def _label_items(labels: dict[str, str]) -> list[int]:
@@ -527,6 +530,26 @@ class EncodedCluster:
     # from live Namespace objects, interpodaffinity/filtering.go:192)
     namespaces: dict[str, dict[str, str]] | None = None
     device: torch.device | None = None
+    # pre-device numpy arrays, keyed "section.field" — kept so the incremental
+    # encoder (models/incremental.py) can seed its mirrors without a device
+    # round-trip
+    host_arrays: dict | None = None
+    # device tensor per key AT HANDOUT: a mirror may only substitute for a
+    # device read while the tensor is still the handed-out object — the loop
+    # REPLACES tensors (placement charging, upcoming-node injection,
+    # drainability) and the mirrors do not follow those
+    host_mirror_token: dict | None = None
+
+    def all_nodes_and_pods(self) -> tuple[list[Node], dict[str, list[Pod]]]:
+        """Host view for the exact oracle (utils/oracle.check_pod_in_cluster).
+
+        None entries are slot/row holes left by the incremental encoder
+        (freed scheduled slots / removed nodes) — skipped."""
+        by_node: dict[str, list[Pod]] = {}
+        for p in self.scheduled_pods:
+            if p is not None and p.node_name:
+                by_node.setdefault(p.node_name, []).append(p)
+        return [nd for nd in self.node_objs if nd is not None], by_node
 
 
 def encode_cluster(
@@ -718,6 +741,28 @@ def encode_cluster(
         g_aff_any[:] = p_aff.sum(axis=1) > 0
     has_constraints = bool(constrained_rows)
 
+    host_arrays = {
+        "nodes.cap": cap, "nodes.alloc": alloc, "nodes.label_hash": label_hash,
+        "nodes.taint_exact": taint_exact, "nodes.taint_key": taint_key,
+        "nodes.used_ports": used_ports, "nodes.zone_id": zone_id,
+        "nodes.group_id": group_id, "nodes.ready": ready,
+        "nodes.schedulable": schedulable, "nodes.valid": valid,
+        "specs.req": g_req, "specs.count": g_count, "specs.sel_req": g_sel_req,
+        "specs.sel_neg": g_sel_neg, "specs.tol_exact": g_tol_exact,
+        "specs.tol_key": g_tol_key, "specs.tolerate_all": g_tol_all,
+        "specs.port_hash": g_ports, "specs.anti_affinity_self": g_anti_self,
+        "specs.valid": g_valid, "specs.needs_host_check": g_hostcheck,
+        "specs.spread_kind": g_spread_kind, "specs.max_skew": g_max_skew,
+        "specs.spread_self": g_spread_self, "specs.aff_kind": g_aff_kind,
+        "specs.aff_self": g_aff_self, "specs.aff_match_any": g_aff_any,
+        "specs.anti_self_zone": g_anti_self_zone,
+        "scheduled.req": s_req, "scheduled.node_idx": s_node,
+        "scheduled.group_ref": s_group, "scheduled.movable": s_movable,
+        "scheduled.blocks": s_blocks, "scheduled.valid": s_valid,
+        "planes.aff_cnt": p_aff, "planes.anti_host_cnt": p_anti_host,
+        "planes.anti_zone_cnt": p_anti_zone, "planes.spread_cnt": p_spread,
+    }
+
     out_nodes = _tensors(
         NodeTensors, device,
         cap=cap, alloc=alloc, label_hash=label_hash, taint_exact=taint_exact,
@@ -761,7 +806,22 @@ def encode_cluster(
         node_objs=list(nodes),
         namespaces=namespaces,
         device=device,
+        host_arrays=host_arrays,
+        host_mirror_token=mirror_token(out_nodes, out_specs, out_sched,
+                                       out_planes),
     )
+
+
+def mirror_token(nodes_t, specs_t, sched_t, planes_t) -> dict:
+    """host_mirror_token over EVERY mirrored field (derived from the same
+    field sets both encode paths use — no hand-maintained key list)."""
+    out: dict = {}
+    for section, tree in (("nodes", nodes_t), ("specs", specs_t),
+                          ("scheduled", sched_t), ("planes", planes_t)):
+        for f, arr in vars(tree).items():
+            if arr is not None and not f.startswith("_"):
+                out[f"{section}.{f}"] = arr
+    return out
 
 
 def encode_node_groups(
@@ -770,6 +830,7 @@ def encode_node_groups(
     zone_table: ZoneTable,
     dims: Dims = DEFAULT_DIMS,
     bucket: int = 8,
+    daemonsets: list | None = None,
     device: str | torch.device | None = None,
 ) -> NodeGroupTensors:
     """Lower node-group templates (template node, max_new, price/node) to tensors.
@@ -777,8 +838,12 @@ def encode_node_groups(
     Reference: MixedTemplateNodeInfoProvider (processors/nodeinfosprovider)
     produces a NodeInfo per group; sanitization (simulator/node_info_utils.go)
     is mirrored by the caller passing a clean template Node. `device`: None =
-    CUDA, as in encode_cluster. (The reference's `daemonsets` overhead charge
-    is not ported yet.)
+    CUDA, as in encode_cluster.
+
+    `daemonsets` (Workloads of kind DaemonSet) charge their matching pods'
+    requests against each template's capacity row — the reference builds
+    template NodeInfos WITH their DS pods (node_info_utils.go:45 via
+    daemonset.go:39), so every simulated new node starts DS-loaded.
     """
     device = resolve_device(device)
     ng_pad = pad_to(max(len(templates), 1), bucket)
@@ -793,6 +858,13 @@ def encode_node_groups(
     valid = np.zeros((ng_pad,), bool)
     for i, (tmpl, mx, pr) in enumerate(templates):
         cap[i] = node_capacity_vector(tmpl, registry)
+        if daemonsets:
+            from kubernetes_autoscaler_tpu_torch.utils.daemonset import (
+                daemonset_overhead,
+            )
+
+            cap[i] = np.maximum(
+                cap[i] - daemonset_overhead(tmpl, daemonsets, registry), 0)
         _fill(label_hash[i], _label_items(tmpl.labels))
         tx, tk = [], []
         for t in tmpl.taints:

@@ -16,6 +16,11 @@ A node with more than `max_groups_per_node` distinct shapes is reported
 undrainable (its overflow pods count in n_failed). The chunk size changes
 memory only, never results; by default it is worked out from
 `CHUNK_BYTES` and the world's N and R (`default_chunk`).
+
+`failure_reasons` is the lazy explanation pass over the candidates the
+sweep reported undrainable: the same gather, compaction and first-fit
+(steps 1-2), then which pod group found no destination, or why else the
+node cannot drain (`RemovalReasons`).
 """
 
 from __future__ import annotations
@@ -46,6 +51,29 @@ def default_chunk(c_total: int, n: int, r: int) -> int:
     return max(1, -(-c_total // n_chunks))
 
 
+# per-candidate drain failure reasons (the scale-down reason plane); codes
+# and names are the reference package's
+DRAIN_OK = 0
+DRAIN_BLOCKED_BY_POD = 1       # a pod forbids draining (drainability rules)
+DRAIN_NO_PLACE_FOR_GROUP = 2   # fail_group says WHICH pod shape found no room
+DRAIN_TOO_MANY_SHAPES = 3      # > max_groups_per_node distinct shapes resident
+DRAIN_REASON_NAMES = {
+    DRAIN_OK: "",
+    DRAIN_BLOCKED_BY_POD: "BlockedByPod",
+    DRAIN_NO_PLACE_FOR_GROUP: "NoPlaceToMovePods",
+    DRAIN_TOO_MANY_SHAPES: "TooManyPodShapes",
+}
+
+
+@dataclass(frozen=True)
+class RemovalReasons(_Tree):
+    """Explanation record per failed candidate (lazy second pass)."""
+
+    reason: torch.Tensor      # i32[C] DRAIN_* code
+    fail_group: torch.Tensor  # i32[C] first equivalence row with unplaced pods (-1)
+    n_unplaced: torch.Tensor  # i32[C] movable pods with no destination
+
+
 @dataclass(frozen=True)
 class RemovalResult(_Tree):
     drainable: torch.Tensor    # bool[C] all movable pods re-placed & no blockers
@@ -55,6 +83,14 @@ class RemovalResult(_Tree):
     dest_node: torch.Tensor    # i32[C, MPN] destination per pod slot (-1 = none)
     pod_slot: torch.Tensor     # i32[C, MPN] ScheduledPodTensors index per slot
     feas: torch.Tensor         # bool[G, N] shared predicate plane (pre-capacity)
+
+
+def fetch_result(r: RemovalResult, phases=None) -> RemovalResult:
+    """Device→host in at most three copies (ops/hostfetch); the bool `feas`
+    plane rides bit-packed. `phases` turns on the byte counters."""
+    from kubernetes_autoscaler_tpu_torch.ops.hostfetch import fetch_pytree
+
+    return fetch_pytree(r, phases=phases)
 
 
 def simulate_removals(
@@ -69,6 +105,36 @@ def simulate_removals(
 ) -> RemovalResult:
     """Simulate removing every candidate node independently. `chunk`
     (candidates per chunk) defaults to `default_chunk`."""
+    return _sweep(nodes, specs, scheduled, candidates, dest_allowed,
+                  max_pods_per_node, chunk, max_groups_per_node,
+                  explain=False)
+
+
+def failure_reasons(
+    nodes: NodeTensors,
+    specs: PodGroupTensors,
+    scheduled: ScheduledPodTensors,
+    candidates: torch.Tensor,     # i32[C] FAILED candidate node indices
+    dest_allowed: torch.Tensor,
+    max_pods_per_node: int = 128,
+    chunk: int | None = None,
+    max_groups_per_node: int = 16,
+) -> RemovalReasons:
+    """The lazy drain reason pass: re-run the per-candidate group
+    compaction + first-fit for the candidates the sweep reported
+    undrainable, and say WHY — blocked-by-pod, no-place-for-pod-group-k,
+    or shape overflow. Callers run it only when some candidate failed, and
+    only over the failed subset. Explanatory, not a verdict:
+    drainability truth stays with `simulate_removals`."""
+    return _sweep(nodes, specs, scheduled, candidates, dest_allowed,
+                  max_pods_per_node, chunk, max_groups_per_node,
+                  explain=True)
+
+
+def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
+           max_pods_per_node, chunk, max_groups_per_node, explain: bool):
+    """The chunked sweep behind both entry points: RemovalResult, or with
+    `explain` the RemovalReasons of the same first-fit."""
     n = nodes.n
     g_total = specs.g
     mpn = max_pods_per_node
@@ -147,6 +213,10 @@ def simulate_removals(
             placed_k.append(place.sum(dim=1))
             cumplace_k.append(torch.cumsum(place, dim=1))
         placed_k = torch.stack(placed_k, dim=1)                        # [C, K]
+        if explain:
+            outs.append(_explain(blocker, movable, nz, gidx, cnt_k, placed_k,
+                                 kk))
+            continue
         n_moved = placed_k.sum(dim=1).to(i32)
         n_failed = (movable.sum(dim=1) - n_moved).to(i32)
         drainable = ~blocker & (n_failed == 0)
@@ -168,6 +238,11 @@ def simulate_removals(
         pod_slot = torch.where(on_c, safe.to(i32), -1)
         outs.append((drainable, blocker, n_moved, n_failed, dests, pod_slot))
 
+    if explain:
+        reason, fail_group, n_unplaced = (
+            torch.cat(parts)[:c_total] for parts in zip(*outs))
+        return RemovalReasons(reason=reason, fail_group=fail_group,
+                              n_unplaced=n_unplaced)
     drainable, blocker, n_moved, n_failed, dests, pod_slot = (
         torch.cat(parts)[:c_total] for parts in zip(*outs))
     return RemovalResult(
@@ -179,3 +254,22 @@ def simulate_removals(
         pod_slot=pod_slot,
         feas=feas_gn,
     )
+
+
+def _explain(blocker, movable, nz, gidx, cnt_k, placed_k, kk):
+    """One chunk's failure attribution: (reason, fail_group, n_unplaced),
+    each i32[C]."""
+    i32 = torch.int32
+    unplaced_k = cnt_k - placed_k                                  # [C, K]
+    scan_fail = (unplaced_k > 0).any(dim=1)
+    # argmax of a bool row: the first True (0 when none, then unused)
+    first_j = (unplaced_k > 0).to(i32).argmax(dim=1)
+    fail_group = torch.where(
+        scan_fail, torch.gather(gidx, 1, first_j[:, None].long())[:, 0], -1)
+    n_unplaced = movable.sum(dim=1) - placed_k.sum(dim=1)
+    overflow = nz.sum(dim=1) > kk
+    reason = torch.where(
+        blocker, DRAIN_BLOCKED_BY_POD,
+        torch.where(scan_fail, DRAIN_NO_PLACE_FOR_GROUP,
+                    torch.where(overflow, DRAIN_TOO_MANY_SHAPES, DRAIN_OK)))
+    return reason.to(i32), fail_group.to(i32), n_unplaced.to(i32)

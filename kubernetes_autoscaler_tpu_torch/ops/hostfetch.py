@@ -18,6 +18,17 @@ float→float32 would have moved).
 Round trips: every fetch that reaches the device counts one, unless it runs
 inside `suppress_counting()`; `reset_round_trips()` and `round_trips()` read
 and clear the count, as the reference's control loop does per loop.
+`to_host` is the uncounted single-tensor read (the reference's
+`np.asarray` of a device array, which its round-trip meter does not see).
+
+`fetch_pytree_async` / `AsyncFetch` issue the same packed copy without
+blocking: the three buffers are copied with `non_blocking=True` into pinned
+host buffers behind a CUDA event, and `.get()` waits on the event. A
+non-blocking copy into pageable memory would block at issue, so the pinned
+buffers are what lets the caller's host work overlap the transfer.
+
+Every synchronous fetch and async harvest passes the `local_fetch` fault
+hook (sidecar/faults.py) under the `if _faults.PLAN is not None` guard.
 """
 
 from __future__ import annotations
@@ -27,10 +38,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from kubernetes_autoscaler_tpu_torch.metrics import trace as _trace
 from kubernetes_autoscaler_tpu_torch.ops.bitplane import (
     pack_flat_bits,
     unpack_flat_bits_np,
 )
+from kubernetes_autoscaler_tpu_torch.sidecar import faults as _faults
 
 # leaf dtypes the three buffer classes hold without wrapping, and their
 # numpy counterparts on the host
@@ -75,6 +88,14 @@ class suppress_counting:
         global _COUNT_SUPPRESSED
         _COUNT_SUPPRESSED -= 1
         return False
+
+
+def to_host(x, dtype=None) -> np.ndarray:
+    """`np.asarray` that also takes a tensor on any device: a CUDA tensor is
+    copied to the host first. Not counted as a round trip."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
 
 
 def _is_leaf(x) -> bool:
@@ -204,3 +225,81 @@ def fetch_pytree(tree, phases=None):
     _account(phases, bufs, leaves)
     b, i, f = (buf.cpu().numpy() for buf in bufs)
     return _unflatten(tree, leaves, b, i, f)
+
+
+class AsyncFetch:
+    """In-flight batched fetch: issued now, harvested with `.get()`.
+
+    The leaves are packed as `fetch_pytree` packs them; on CUDA the three
+    buffers are copied with `non_blocking=True` into pinned host buffers and
+    a CUDA event is recorded behind the copies. Between issue and harvest
+    the caller runs its next host work. The handle owns a `fetch` span
+    (async=true) on the tracer that was active at issue time; `.get()`
+    closes it. `.get()` is idempotent. On the CPU the copy is synchronous
+    and there is no event."""
+
+    __slots__ = ("_tree", "_leaves", "_host", "_event", "_result", "_done",
+                 "_tracer", "_span")
+
+    def __init__(self, tree, phases=None, span_name: str = "fetch",
+                 trace: bool = True):
+        self._tree = tree
+        self._leaves = _flatten(tree, [])
+        self._event = None
+        if self._leaves and all(isinstance(x, np.ndarray)
+                                for x in self._leaves):
+            # every leaf already on the host: no transfer, no round trip
+            self._result = tree
+            self._done = True
+            self._host = None
+            self._tracer = None
+            self._span = None
+            return
+        device = next(x.device for x in self._leaves
+                      if isinstance(x, torch.Tensor))
+        bufs = _packed(self._leaves, device)
+        _account(phases, bufs, self._leaves)
+        if device.type == "cuda":
+            self._host = tuple(
+                torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                for b in bufs)
+            for h, b in zip(self._host, bufs):
+                h.copy_(b, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+        else:
+            self._host = tuple(b.clone() for b in bufs)
+        self._result = None
+        self._done = False
+        # trace=False is for speculative issues: the handle may be harvested
+        # a loop later, or never, so it must not hold a slot on the issuing
+        # loop's LIFO span stack
+        self._tracer = _trace.current_tracer() if trace else None
+        self._span = (self._tracer.begin(span_name, cat="fetch",
+                                         **{"async": True})
+                      if self._tracer is not None else None)
+
+    def get(self):
+        """Wait for the copies (overlapped with whatever the caller did
+        since issue) and rebuild the original tree."""
+        if self._done:
+            return self._result
+        if _faults.PLAN is not None:
+            _faults.PLAN.fire("local_fetch")
+        _bump_round_trip()
+        if self._event is not None:
+            self._event.synchronize()
+        b, i, f = (h.numpy() for h in self._host)
+        self._result = _unflatten(self._tree, self._leaves, b, i, f)
+        self._done = True
+        self._host = None
+        self._event = None
+        if self._tracer is not None:
+            self._tracer.end(self._span)
+            self._tracer = None
+        return self._result
+
+
+def fetch_pytree_async(tree, phases=None, trace: bool = True) -> AsyncFetch:
+    """Issue a batched fetch without blocking; see AsyncFetch."""
+    return AsyncFetch(tree, phases=phases, trace=trace)

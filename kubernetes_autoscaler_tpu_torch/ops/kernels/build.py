@@ -73,6 +73,14 @@ def build(sources: list[str]) -> dict[str, Path]:
     return out
 
 
+def cache_size() -> int:
+    """Kernel libraries loaded so far in this process: the port's build
+    cache. Each holds every template instance of its kernel, so growth is
+    the port's counterpart of a compile (the control loop's
+    `fused_program_compiles_total` counts it)."""
+    return len(_loaded)
+
+
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of `source`, built first if needed."""
     if source not in _loaded:

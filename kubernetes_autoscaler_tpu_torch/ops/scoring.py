@@ -1,7 +1,7 @@
 """Expander scoring: every strategy's inputs as reductions over the options.
 
 Counterpart of the reference package's `ops/scoring.py` (OptionScores,
-score_options, best_option).
+fetch_scores, score_options, best_option).
 """
 
 from __future__ import annotations
@@ -34,6 +34,15 @@ class OptionScores(_Tree):
     waste: torch.Tensor   # f32[NG] leftover cpu+mem fraction (least-waste)
     price: torch.Tensor   # f32[NG] node_count × price_per_node
     helped_req: torch.Tensor | None = None  # f32[NG, R] Σ_g scheduled × req
+
+
+def fetch_scores(sc: OptionScores, phases=None) -> OptionScores:
+    """Device→host in at most three copies (ops/hostfetch) — the host
+    consumes these values element-wise, and each scalar read would be its
+    own round trip. `phases` turns on the byte counters."""
+    from kubernetes_autoscaler_tpu_torch.ops.hostfetch import fetch_pytree
+
+    return fetch_pytree(sc, phases=phases)
 
 
 def score_options(est: EstimateResult, groups: NodeGroupTensors,

@@ -155,7 +155,14 @@ def apply_drainability(enc, opts: DrainOptions = DrainOptions(),
         blocks[j] = v is Verdict.BLOCK
     dev = enc.scheduled.valid.device
     enc.scheduled = enc.scheduled.replace(
-        movable=torch.as_tensor(movable, device=dev),
-        blocks=torch.as_tensor(blocks, device=dev),
+        movable=torch.from_numpy(movable).to(dev, copy=True),
+        blocks=torch.from_numpy(blocks).to(dev, copy=True),
     )
+    if enc.host_arrays is not None:  # keep the host mirror coherent
+        enc.host_arrays["scheduled.movable"] = movable
+        enc.host_arrays["scheduled.blocks"] = blocks
+        if enc.host_mirror_token is not None:
+            # the replaced device arrays ARE mirrored by the new host arrays
+            enc.host_mirror_token["scheduled.movable"] = enc.scheduled.movable
+            enc.host_mirror_token["scheduled.blocks"] = enc.scheduled.blocks
     return enc

@@ -90,3 +90,12 @@ def build_test_pod(
         priority=priority,
         phase="Running" if node_name else "Pending",
     )
+
+
+def replicate(pod_factory, count: int, prefix: str):
+    """count pods sharing one controller (one equivalence group)."""
+    pods = []
+    for i in range(count):
+        p = pod_factory(f"{prefix}-{i}")
+        pods.append(p)
+    return pods
