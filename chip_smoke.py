@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero and no phase carries on past
 its own failure:
 
   1. device     the card's name and power limit (nvidia-smi); no CUDA → exit 1
-  2. build      every CUDA source of the port, built with nvcc in parallel
+  2. build      every CUDA source of the port, built with nvcc in parallel,
+                and the native confirmation's host library
   3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu) against its plain
                 PyTorch version on the card, byte for byte, on seeded cases
   4. main       `run_once_fused` on the bench world (5,000 nodes, 50,000
@@ -49,7 +50,25 @@ its own failure:
                 the CPU and 8 on the card: every loop's decision-surface
                 digests, fused mode, speculation outcome and round trips
                 equal
- 10. result     the kernels line, the card line, and the last line
+ 10. constrained  `run_once_fused` with the constrained tier on the main
+                world with BASELINE.json config #5's constraints (20 of the
+                25 pending groups: zone spread, hostname spread, hostname
+                anti-affinity and zone affinity to residents): step and
+                phase times, waves and flag reads per phase, one step under
+                torch.profiler, peak memory, the decision; the wave-check
+                interval swept (outputs byte-equal); `run_once_sim` with
+                constraints
+ 11. constrained-cpu-card  a 512-node world with every constraint kind:
+                `run_once_fused`, `scale_up_sim` and `scale_down_sim` with
+                constraints on the CPU and on the card, leaves equal as in
+                7, the same chosen option, a group capped at MAX_WAVES
+ 12. loop-constrained  the control loop on the constrained main world with
+                the churn of 8: a cold loop, 4 timed; fused, at most 2
+                round trips, the native confirmation available
+ 13. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
+                time 0, 8 loops on the CPU and 8 on the card: digests equal
+                every loop, nodes deleted, the native confirmation ran
+ 14. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -96,6 +115,14 @@ LOOP_BINDS = 50               # of those, bound to a node by the "kubelet"
 LOOP_BURST = 200              # 14,000m pods on loops where loop % 4 == 2
 LOOP_STEPS = 8                # timed loops after the cold one
 LOOP_SMALL_NODES = 512        # the CPU-vs-card loop world
+# the constrained tier: the bench world with constraints (bench_pod_factory)
+CON_STEPS = 10                # timed constrained fused steps
+CON_PHASED_STEPS = 3          # timed run_once_sim steps with constraints
+WAVE_CHECKS = (1, 2, 4, 8, 16)  # wave-check intervals swept
+WAVE_ROUNDS = 3               # interleaved rounds of the sweep, one step each
+CON_LOOP_STEPS = 4            # timed constrained loops after the cold one
+CON_LOOP_SMALL_PODS = 250     # pending pods of the 512-node constrained loop
+KINDS_WAVE_PODS = 140         # the every-kind world's one-zone spread group
 HOLD_CYCLES = 2_000_000       # ≈ 1 ms spin, longer than the host takes to enqueue a launch
 
 
@@ -189,28 +216,76 @@ class Events:
 # ---------------------------------------------------------------- worlds
 
 
-def build_world(n_nodes, n_pods, n_groups, n_nodegroups, residents_per_node,
-                device, pools=0, bench_load=False, node_bucket=256,
-                group_bucket=64):
-    """The bench world (bench.py build_world: same labels, taints, zones,
-    GPU nodes, pending groups drawn from RandomState(0), node-group
-    templates), then drainability.
+ZONES = ["us-a", "us-b", "us-c"]
+ZONE_KEY = "topology.kubernetes.io/zone"
+HOST_KEY = "kubernetes.io/hostname"
 
-    `residents_per_node` adds the scale-down bench's residents (800m / 256
-    MiB each, owners rs0..rs16), which carry the nodes' load; `bench_load`
-    instead sets bench.py's synthetic load (40 % of cpu and memory, 30 % of
-    the pods slot). With `pools` = k the cluster is carved into k node
-    pools: node i and template t get pool=p{i % k} / p{t % k} in place of
-    the two-valued pool label, and pending group g's selector gains
-    pool: p{g % k}."""
-    from kubernetes_autoscaler_tpu_torch.models.api import Taint, Toleration
-    from kubernetes_autoscaler_tpu_torch.models.encode import (
-        encode_cluster,
-        encode_node_groups,
+
+def bench_pod_factory(n_groups, pools=0, constrained=False):
+    """bench.py's pending groups (requests, selectors, tolerations and GPUs
+    drawn from RandomState(0)): a function (g, name) → a pending pod of
+    group g. With `constrained` (BASELINE.json config #5's anti-affinity
+    shape), 20 of every 25 groups carry a topology constraint, by g % 5:
+    1 zone spread maxSkew 1 and 2 hostname spread maxSkew 2, each
+    selecting the group's own label; 3 required hostname anti-affinity to
+    the `app: a3` residents; 4 required zone pod affinity to the `app: a4`
+    residents."""
+    from kubernetes_autoscaler_tpu_torch.models.api import (
+        AffinityTerm,
+        Toleration,
+        TopologySpreadConstraint,
     )
-    from kubernetes_autoscaler_tpu_torch.simulator.drainability.rules import (
-        apply_drainability,
-    )
+    from kubernetes_autoscaler_tpu_torch.utils.testing import build_test_pod
+
+    rng = np.random.RandomState(0)
+    draws = [(int(rng.choice([250, 500, 1000, 2000, 4000])),
+              int(rng.choice([256, 512, 2048, 8192]))) for _ in range(n_groups)]
+    tol = [Toleration(key="dedicated", operator="Equal", value="infra",
+                      effect="NoSchedule")]
+    rules = {
+        1: ("topology_spread", TopologySpreadConstraint(
+            max_skew=1, topology_key=ZONE_KEY)),
+        2: ("topology_spread", TopologySpreadConstraint(
+            max_skew=2, topology_key=HOST_KEY)),
+        3: ("anti_affinity", AffinityTerm(match_labels={"app": "a3"},
+                                          topology_key=HOST_KEY)),
+        4: ("pod_affinity", AffinityTerm(match_labels={"app": "a4"},
+                                         topology_key=ZONE_KEY)),
+    }
+
+    def make(g, name):
+        cpu, mem = draws[g]
+        sel = {"disk": "ssd"} if g % 4 == 0 else {}
+        if pools:
+            sel = {**sel, "pool": f"p{g % pools}"}
+        p = build_test_pod(
+            name, cpu_milli=cpu, mem_mib=mem, owner_name=f"rs-{g}",
+            node_selector=sel, tolerations=tol if g % 5 == 0 else [],
+            gpus=1 if g % 7 == 0 else 0,
+            labels={"grp": f"g{g}"} if constrained else None)
+        if constrained and g % 5:
+            field, rule = rules[g % 5]
+            if field == "topology_spread":
+                rule = TopologySpreadConstraint(
+                    max_skew=rule.max_skew, topology_key=rule.topology_key,
+                    match_labels={"grp": f"g{g}"})
+            setattr(p, field, [rule])
+        return p
+
+    return make
+
+
+def bench_objects(n_nodes, n_pods, n_groups, n_nodegroups, residents_per_node,
+                  pools=0, constrained=False):
+    """(nodes, pods, templates) of the bench world (bench.py build_world:
+    same labels, taints, zones, GPU nodes, pending groups, node-group
+    templates). `residents_per_node` adds the scale-down bench's residents
+    (800m / 256 MiB each, owners rs0..rs16; with `constrained` the
+    residents of rs{k} carry `app: a{k % 5}`). With `pools` = k the cluster
+    is carved into k node pools: node i and template t get pool=p{i % k} /
+    p{t % k} in place of the two-valued pool label, and pending group g's
+    selector gains pool: p{g % k}. `constrained`: see bench_pod_factory."""
+    from kubernetes_autoscaler_tpu_torch.models.api import Taint
     from kubernetes_autoscaler_tpu_torch.utils.testing import (
         build_test_node,
         build_test_pod,
@@ -219,37 +294,50 @@ def build_world(n_nodes, n_pods, n_groups, n_nodegroups, residents_per_node,
     def pool(i):
         return f"p{i % pools}" if pools else ("a" if i % 2 else "b")
 
-    rng = np.random.RandomState(0)
-    zones = ["us-a", "us-b", "us-c"]
     nodes = []
     for i in range(n_nodes):
         taints = [Taint("dedicated", "infra", "NoSchedule")] if i % 10 == 0 else []
         nodes.append(build_test_node(
             f"node-{i}", cpu_milli=16000, mem_mib=65536, pods=110,
             labels={"pool": pool(i), "disk": "ssd" if i % 3 else "hdd"},
-            taints=taints, zone=zones[i % 3], gpus=8 if i % 25 == 0 else 0))
+            taints=taints, zone=ZONES[i % 3], gpus=8 if i % 25 == 0 else 0))
+    make = bench_pod_factory(n_groups, pools, constrained)
     per_group = n_pods // n_groups
-    pods = []
-    for g in range(n_groups):
-        cpu = int(rng.choice([250, 500, 1000, 2000, 4000]))
-        mem = int(rng.choice([256, 512, 2048, 8192]))
-        sel = {"disk": "ssd"} if g % 4 == 0 else {}
-        if pools:
-            sel = {**sel, "pool": pool(g)}
-        tol = [Toleration(key="dedicated", operator="Equal", value="infra",
-                          effect="NoSchedule")] if g % 5 == 0 else []
-        gpus = 1 if g % 7 == 0 else 0
-        for i in range(per_group):
-            pods.append(build_test_pod(
-                f"pod-{g}-{i}", cpu_milli=cpu, mem_mib=mem, owner_name=f"rs-{g}",
-                node_selector=sel, tolerations=tol, gpus=gpus))
+    pods = [make(g, f"pod-{g}-{i}")
+            for g in range(n_groups) for i in range(per_group)]
     k = 0
     for nd in nodes:
         for _ in range(residents_per_node):
             pods.append(build_test_pod(
                 f"res-{k}", cpu_milli=800, mem_mib=256,
-                owner_name=f"rs{k % 17}", node_name=nd.name))
+                owner_name=f"rs{k % 17}", node_name=nd.name,
+                labels={"app": f"a{k % 17 % 5}"} if constrained else None))
             k += 1
+    templates = []
+    for t in range(n_nodegroups):
+        tmpl = build_test_node(
+            f"template-{t}", cpu_milli=[4000, 8000, 16000, 32000][t % 4],
+            mem_mib=[16384, 32768, 65536, 131072][t % 4], pods=110,
+            labels={"pool": pool(t), "disk": "ssd" if t % 3 else "hdd"},
+            zone=ZONES[t % 3], gpus=8 if t % 5 == 0 else 0)
+        templates.append((tmpl, 1000, float(1 + t)))
+    return nodes, pods, templates
+
+
+def encode_world(objects, device, bench_load=False, node_bucket=256,
+                 group_bucket=64):
+    """Encode (nodes, pods, templates) with the port's encoder, then
+    drainability; `bench_load` sets bench.py's synthetic load (40 % of cpu
+    and memory, 30 % of the pods slot). Returns (enc, node-group tensors)."""
+    from kubernetes_autoscaler_tpu_torch.models.encode import (
+        encode_cluster,
+        encode_node_groups,
+    )
+    from kubernetes_autoscaler_tpu_torch.simulator.drainability.rules import (
+        apply_drainability,
+    )
+
+    nodes, pods, templates = objects
     enc = encode_cluster(nodes, pods, node_bucket=node_bucket,
                          group_bucket=group_bucket, device=device)
     if bench_load:
@@ -260,17 +348,17 @@ def build_world(n_nodes, n_pods, n_groups, n_nodegroups, residents_per_node,
         alloc[:, 3] = (cap[:, 3] * 0.3).astype(np.int32)
         enc.nodes = enc.nodes.replace(alloc=torch.from_numpy(alloc).to(device))
     apply_drainability(enc, now=0.0)
-    templates = []
-    for t in range(n_nodegroups):
-        tmpl = build_test_node(
-            f"template-{t}", cpu_milli=[4000, 8000, 16000, 32000][t % 4],
-            mem_mib=[16384, 32768, 65536, 131072][t % 4], pods=110,
-            labels={"pool": pool(t), "disk": "ssd" if t % 3 else "hdd"},
-            zone=zones[t % 3], gpus=8 if t % 5 == 0 else 0)
-        templates.append((tmpl, 1000, float(1 + t)))
     groups = encode_node_groups(templates, enc.registry, enc.zone_table,
                                 device=device)
     return enc, groups
+
+
+def build_world(n_nodes, n_pods, n_groups, n_nodegroups, residents_per_node,
+                device, pools=0, bench_load=False, constrained=False):
+    """The bench world (bench_objects), encoded (encode_world)."""
+    return encode_world(bench_objects(n_nodes, n_pods, n_groups, n_nodegroups,
+                                      residents_per_node, pools, constrained),
+                        device, bench_load)
 
 
 def describe(enc, groups) -> str:
@@ -508,10 +596,12 @@ def check_wave(name, args, kernel, plain):
 # ---------------------------------------------------------------- profile
 
 
-def profile_step(step, step_ms_p50, out_dir):
+def profile_step(step, step_ms_p50, out_dir, tag="[profile]",
+                 trace_name="chip_smoke_step.trace.json"):
     """One step under torch.profiler: device time by kernel name, the number
     of device kernels, and the device's busy share of an unprofiled step
-    (summed kernel time over the step's p50). The trace goes to out_dir."""
+    (summed kernel time over the step's p50). The trace goes to out_dir
+    (none without it). Returns (kernels, kernel ms)."""
     import os
     from collections import defaultdict
 
@@ -531,13 +621,15 @@ def profile_step(step, step_ms_p50, out_dir):
         raise AssertionError("the profiler saw no device kernel")
     kernels = sum(c for c, _ in by_name.values())
     busy_ms = sum(t for _, t in by_name.values())
-    log(f"[profile] {kernels} device kernels in one step, {busy_ms} ms of "
+    log(f"{tag} {kernels} device kernels in one step, {busy_ms} ms of "
         f"kernel time; busy share of the unprofiled step p50 "
         f"{busy_ms / step_ms_p50}")
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
-        log(f"[profile] {t} ms {c:6d}x {name[:110]}")
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "chip_smoke_step.trace.json"))
+        log(f"{tag} {t} ms {c:6d}x {name[:110]}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, trace_name))
+    return kernels, busy_ms
 
 
 # ---------------------------------------------------------------- phases
@@ -954,12 +1046,11 @@ def loop_world(n_nodes, n_pods):
                 f"r{i}-{j}", cpu_milli=per_pod, mem_mib=1024,
                 owner_name=f"rs{i % 17}", node_name=nd.name))
     for i in range(n_pods):
-        fake.add_pod(build_test_pod(f"p{i}", cpu_milli=500, mem_mib=512,
-                                    owner_name=f"prs{i % LOOP_POD_GROUPS}"))
+        fake.add_pod(loop_pod(i, i))
     return fake
 
 
-def loop_autoscaler(fake, device, capture_verdicts=False):
+def loop_autoscaler(fake, device, capture_verdicts=False, unneeded_s=3600.0):
     from kubernetes_autoscaler_tpu_torch.config.options import (
         AutoscalingOptions,
         NodeGroupDefaults,
@@ -969,12 +1060,16 @@ def loop_autoscaler(fake, device, capture_verdicts=False):
     )
     from kubernetes_autoscaler_tpu_torch.metrics.metrics import Registry
 
+    # an unneeded time of 0 also drops the scale-down delays, so that the
+    # planner confirms and deletes nodes from the first loop on
+    delays = {} if unneeded_s else dict(scale_down_delay_after_add_s=0.0,
+                                        scale_down_delay_after_failure_s=0.0)
     opts = AutoscalingOptions(
         node_shape_bucket=256, group_shape_bucket=64,
         max_new_nodes_static=256, max_pods_per_node=16, drain_chunk=256,
         node_group_defaults=NodeGroupDefaults(
-            scale_down_unneeded_time_s=3600.0,
-            scale_down_unready_time_s=3600.0))
+            scale_down_unneeded_time_s=unneeded_s,
+            scale_down_unready_time_s=3600.0), **delays)
     a = StaticAutoscaler(fake.provider, fake, options=opts,
                          eviction_sink=fake, registry=Registry(),
                          device=device)
@@ -984,14 +1079,27 @@ def loop_autoscaler(fake, device, capture_verdicts=False):
     return a
 
 
+def loop_pod(seq, k):
+    """Pending pod p{seq} of the bench_runonce_e2e world, in owner group
+    k % LOOP_POD_GROUPS."""
+    from kubernetes_autoscaler_tpu_torch.utils.testing import build_test_pod
+
+    return build_test_pod(f"p{seq}", cpu_milli=500, mem_mib=512,
+                          owner_name=f"prs{k % LOOP_POD_GROUPS}")
+
+
 class LoopScript:
     """bench_runonce_e2e's churn: before each loop LOOP_CHURN pending pods
     leave and as many arrive, LOOP_BINDS of the new ones are bound; a
     LOOP_BURST-pod unfittable burst arrives before loops where loop % 4 ==
-    2 and leaves after loops where loop % 4 == 3."""
+    2 and leaves after loops where loop % 4 == 3. `make_pod(seq, k)`
+    builds pending pod p{seq}, the k-th of the churn; `node_name(i)` names
+    node i."""
 
-    def __init__(self, fake, n_nodes, n_pods):
+    def __init__(self, fake, n_nodes, n_pods, make_pod=loop_pod,
+                 node_name="n{}".format):
         self.fake, self.n_nodes, self.n_pods = fake, n_nodes, n_pods
+        self.make_pod, self.node_name = make_pod, node_name
         self.seq = self.burst = 0
 
     def before(self, loop):
@@ -1002,12 +1110,11 @@ class LoopScript:
         churn = min(LOOP_CHURN, self.n_pods)
         for k in range(churn):
             self.fake.remove_pod(f"p{self.seq + k}")
-            self.fake.add_pod(build_test_pod(
-                f"p{self.n_pods + self.seq + k}", cpu_milli=500, mem_mib=512,
-                owner_name=f"prs{(self.seq + k) % LOOP_POD_GROUPS}"))
+            self.fake.add_pod(self.make_pod(self.n_pods + self.seq + k,
+                                            self.seq + k))
         for k in range(min(LOOP_BINDS, churn)):
             self.fake.bind(f"p{self.n_pods + self.seq + k}",
-                           f"n{(self.seq + k) % self.n_nodes}")
+                           self.node_name((self.seq + k) % self.n_nodes))
         self.seq += churn
         if loop % 4 == 2:
             self.burst += 1
@@ -1179,6 +1286,528 @@ def loop_cpu_card_phase(card):
             f"round trips {c['round_trips']} ({card})")
 
 
+# ---------------------------------------------------------------- constrained
+
+
+def constraint_kinds(enc) -> dict:
+    """Pending groups (count > 0) by constraint kind, from the encoding."""
+    s, pl = enc.specs, enc.planes
+    live = s.count > 0
+    anti_h = pl.anti_host_cnt.sum(dim=1) > 0
+    anti_z = pl.anti_zone_cnt.sum(dim=1) > 0
+    kinds = {
+        "zone spread": s.spread_kind == 2,
+        "hostname spread": s.spread_kind == 1,
+        "zone affinity": s.aff_kind == 2,
+        "hostname affinity": s.aff_kind == 1,
+        "hostname anti-affinity to residents": anti_h,
+        "zone anti-affinity to residents": anti_z,
+        "hostname self anti-affinity": s.anti_affinity_self,
+        "zone self anti-affinity": s.anti_self_zone,
+    }
+    any_kind = torch.stack(list(kinds.values())).any(dim=0)
+    out = {k: int((v & live).sum()) for k, v in kinds.items()}
+    out["unconstrained"] = int((~any_kind & live).sum())
+    out["host check"] = int((s.needs_host_check & live).sum())
+    return out
+
+
+def kinds_objects(n_nodes):
+    """(nodes, pods, templates) of a world with every dense constraint kind
+    at `n_nodes` nodes: zone and hostname spread (maxSkew 1 and 2, selecting
+    the group itself or only residents), hostname and zone pod affinity
+    (satisfied by residents, or self-selecting with the first-pod
+    bootstrap), hostname and zone anti-affinity (to residents, and to
+    itself, one per node or one per zone), every seventh node without a
+    zone, a template without a zone, constrained residents (zone spread,
+    hostname and zone self anti-affinity) that the drain re-places, an
+    unevictable resident on every ninth node, and a 140-pod zone spread
+    pinned to one zone (one pod a wave: it runs into MAX_WAVES)."""
+    from kubernetes_autoscaler_tpu_torch.models.api import (
+        SAFE_TO_EVICT_KEY,
+        AffinityTerm,
+        TopologySpreadConstraint,
+    )
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    rng = np.random.RandomState(1)
+    zones = ["z0", "z1", "z2"]
+    nodes = [build_test_node(
+        f"n{i}", cpu_milli=int(rng.choice([4000, 8000, 16000])),
+        mem_mib=32768, pods=110, labels={"pool": "a" if i % 2 else "b"},
+        zone="" if i % 7 == 6 else zones[i % 3]) for i in range(n_nodes)]
+    pods = []
+
+    def resident(name, node, app, **extra):
+        p = build_test_pod(name, cpu_milli=int(rng.choice([100, 300])),
+                           mem_mib=128, node_name=node, labels={"app": app},
+                           owner_name=f"rs-{app}")
+        for k, v in extra.items():
+            setattr(p, k, [v])
+        pods.append(p)
+        return p
+
+    for i, nd in enumerate(nodes):
+        if i % 3 == 0:
+            db = resident(f"db{i}", nd.name, "db")
+            if i % 9 == 0:
+                db.annotations[SAFE_TO_EVICT_KEY] = "false"
+        if i % 4 == 1:
+            resident(f"cache{i}", nd.name, "cache")
+        if i % 5 == 2:
+            resident(f"web{i}", nd.name, "web")
+        if i % 6 == 4:
+            resident(f"sp{i}", nd.name, "sp", topology_spread=(
+                TopologySpreadConstraint(max_skew=1, topology_key=ZONE_KEY,
+                                         match_labels={"app": "sp"})))
+            resident(f"ah{i}", nd.name, "ah", anti_affinity=AffinityTerm(
+                match_labels={"app": "ah"}, topology_key=HOST_KEY))
+        if i < 3:
+            resident(f"az{i}", nd.name, "az", anti_affinity=AffinityTerm(
+                match_labels={"app": "az"}, topology_key=ZONE_KEY))
+    spread, term = TopologySpreadConstraint, AffinityTerm
+    kinds = [
+        ("topology_spread", spread(max_skew=1, topology_key=ZONE_KEY,
+                                   match_labels={"app": "g0"})),
+        ("topology_spread", spread(max_skew=2, topology_key=ZONE_KEY,
+                                   match_labels={"app": "g1"})),
+        ("topology_spread", spread(max_skew=1, topology_key=HOST_KEY,
+                                   match_labels={"app": "g2"})),
+        ("topology_spread", spread(max_skew=2, topology_key=HOST_KEY,
+                                   match_labels={"app": "db"})),
+        ("topology_spread", spread(max_skew=1, topology_key=ZONE_KEY,
+                                   match_labels={"app": "cache"})),
+        ("pod_affinity", term(match_labels={"app": "db"},
+                              topology_key=HOST_KEY)),
+        ("pod_affinity", term(match_labels={"app": "cache"},
+                              topology_key=ZONE_KEY)),
+        ("pod_affinity", term(match_labels={"app": "g7"},
+                              topology_key=HOST_KEY)),
+        ("pod_affinity", term(match_labels={"app": "g8"},
+                              topology_key=ZONE_KEY)),
+        ("anti_affinity", term(match_labels={"app": "g9"},
+                               topology_key=HOST_KEY)),
+        ("anti_affinity", term(match_labels={"app": "g10"},
+                               topology_key=ZONE_KEY)),
+        ("anti_affinity", term(match_labels={"app": "db"},
+                               topology_key=HOST_KEY)),
+        ("anti_affinity", term(match_labels={"app": "web"},
+                               topology_key=ZONE_KEY)),
+        (None, None),
+    ]
+    per_group = max(4, n_nodes // 8)
+    for g, (field, rule) in enumerate(kinds):
+        cpu = int(rng.choice([250, 500, 1000]))
+        for i in range(per_group):
+            p = build_test_pod(f"p{g}-{i}", cpu_milli=cpu, mem_mib=256,
+                               owner_name=f"prs{g}", labels={"app": f"g{g}"})
+            if field:
+                setattr(p, field, [rule])
+            pods.append(p)
+    for i in range(KINDS_WAVE_PODS):
+        p = build_test_pod(f"w{i}", cpu_milli=1, mem_mib=1,
+                           owner_name="wave-rs", labels={"app": "wave"},
+                           node_selector={ZONE_KEY: zones[0]})
+        p.topology_spread = [spread(max_skew=1, topology_key=ZONE_KEY,
+                                    match_labels={"app": "wave"})]
+        pods.append(p)
+    templates = []
+    for k in range(4):
+        tmpl = build_test_node(
+            f"tmpl{k}", cpu_milli=[4000, 8000, 16000, 32000][k],
+            mem_mib=65536, pods=110, labels={"pool": "a" if k % 2 else "b"},
+            zone=zones[k] if k < 3 else "")
+        templates.append((tmpl, 64, float(1 + k)))
+    return nodes, pods, templates
+
+
+def wave_counts():
+    from kubernetes_autoscaler_tpu_torch.ops.constrained import place_lanes
+
+    return place_lanes.waves, place_lanes.flag_reads
+
+
+def constrained_phase(dims, card, profile_dir=None):
+    """Phase 10: `run_once_fused` with the constrained tier on the bench
+    world with constraints (bench_pod_factory): step and phase times, the
+    waves and flag reads of each phase, one step under torch.profiler, peak
+    memory, invariants and the decision; the wave-check interval swept
+    (outputs byte-equal at every interval); `run_once_sim` with
+    constraints."""
+    from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
+        ClusterTensors,
+    )
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step, constrained
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
+
+    t0 = time.perf_counter()
+    enc, groups = build_world(NODES, PODS, POD_GROUPS, NODEGROUPS,
+                              RESIDENTS_PER_NODE, DEVICE, constrained=True)
+    log(f"[constrained] world encoded in {time.perf_counter() - t0:.1f} s: "
+        f"{describe(enc, groups)}, max_new_nodes {MAX_NEW_NODES}, "
+        f"max_pods_per_node {MAX_PODS_PER_NODE} ({card})")
+    if not enc.has_constraints:
+        raise AssertionError("the constrained world has no constraints")
+    kinds = constraint_kinds(enc)
+    log(f"[constrained] pending groups by kind: {json.dumps(kinds)}")
+    if (kinds["zone spread"], kinds["hostname spread"],
+            kinds["hostname anti-affinity to residents"],
+            kinds["zone affinity"], kinds["host check"]) != (5, 5, 5, 5, 0):
+        raise AssertionError(f"unexpected constraint kinds {kinds}")
+    limit_cap = torch.full((groups.ng,), MAX_NEW_NODES, dtype=torch.int32,
+                           device=DEVICE)
+
+    def step(on_phase=None):
+        return autoscale_step.run_once_fused(
+            enc.nodes, enc.specs, enc.scheduled, groups, limit_cap, dims,
+            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
+            planes=enc.planes, with_constraints=True, on_phase=on_phase)
+
+    step()                                               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pack_kernel.pack_groups_batched.launches = 0
+    bounds = list(autoscale_step.PHASES) + ["end"]
+    step_ms, phase_ms = [], {p: [] for p in autoscale_step.PHASES}
+    waves, reads = {p: [] for p in autoscale_step.PHASES}, \
+        {p: [] for p in autoscale_step.PHASES}
+    for _ in range(CON_STEPS):
+        events, counts = {}, {}
+
+        def on_phase(name, events=events, counts=counts):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name] = ev
+            counts[name] = wave_counts()
+
+        t0 = time.perf_counter()
+        decision, resident = step(on_phase)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for a, b in zip(bounds, bounds[1:]):
+            phase_ms[a].append(events[a].elapsed_time(events[b]))
+            waves[a].append(counts[b][0] - counts[a][0])
+            reads[a].append(counts[b][1] - counts[a][1])
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    k1 = pack_kernel.pack_groups_batched.launches
+    log(f"[constrained] step ms over {CON_STEPS} steps: {step_ms}; p50 "
+        f"{pct(step_ms, 50)} p90 {pct(step_ms, 90)} ({card})")
+    for p in autoscale_step.PHASES:
+        log(f"[constrained] phase {p} ms (CUDA events): p50 "
+            f"{pct(phase_ms[p], 50)} p90 {pct(phase_ms[p], 90)}; waves a "
+            f"step {sorted(set(waves[p]))}, flag reads a step "
+            f"{sorted(set(reads[p]))} ({card})")
+    log(f"[constrained] peak device memory allocated: {peak_mib:.1f} MiB; "
+        f"K1 launches {k1} in {CON_STEPS} steps (the constrained pack "
+        f"replaces it) ({card})")
+    if k1:
+        raise AssertionError("K1 ran on the constrained path")
+    # the wave-check interval, in interleaved rounds before the profiler
+    # runs: the filter phase (where the waves are) by CUDA events, the step
+    # by the host clock, outputs byte-equal at every interval
+    want = flat((decision, resident))
+    default = constrained.WAVE_CHECK
+    sweep = {k: {"step": [], "filter": [], "waves": 0, "reads": 0}
+             for k in WAVE_CHECKS}
+    try:
+        for _ in range(WAVE_ROUNDS):
+            for k in WAVE_CHECKS:
+                constrained.WAVE_CHECK = k
+                events = {}
+
+                def on_phase(name, events=events):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    events[name] = ev
+
+                w0 = wave_counts()
+                t0 = time.perf_counter()
+                out = step(on_phase)
+                torch.cuda.synchronize()
+                row = sweep[k]
+                row["step"].append((time.perf_counter() - t0) * 1e3)
+                row["filter"].append(events["filter"].elapsed_time(
+                    events["scale_up"]))
+                w1 = wave_counts()
+                row["waves"], row["reads"] = w1[0] - w0[0], w1[1] - w0[1]
+                for path, t in flat(out).items():
+                    if not torch.equal(t, want[path]):
+                        raise AssertionError(f"WAVE_CHECK={k}: {path} differs")
+    finally:
+        constrained.WAVE_CHECK = default
+    for k, row in sweep.items():
+        log(f"[constrained] WAVE_CHECK {k}: step ms {row['step']} (median "
+            f"{statistics.median(row['step'])}), filter ms {row['filter']} "
+            f"(median {statistics.median(row['filter'])}), waves a step "
+            f"{row['waves']}, flag reads a step {row['reads']}, outputs "
+            f"byte-equal ({card})")
+
+    profile_step(step, pct(step_ms, 50), profile_dir, tag="[constrained]",
+                 trace_name="chip_smoke_constrained_step.trace.json")
+
+    d = decision
+    if not bool((d.verdict <= enc.specs.count).all()):
+        raise AssertionError("verdict exceeds the pending count")
+    if not bool((d.alloc_after <= enc.nodes.cap)[enc.nodes.valid].all()):
+        raise AssertionError("alloc_after exceeds cap on a valid node")
+    if not bool((d.est_scheduled <= d.pending_after[None, :]).all()):
+        raise AssertionError("an option schedules more than is pending")
+    assert_finite("[constrained]", (decision, resident))
+    s = enc.specs
+    live = s.count > 0
+    for name, mask in (("zone spread", s.spread_kind == 2),
+                       ("hostname spread", s.spread_kind == 1),
+                       ("zone affinity", s.aff_kind == 2),
+                       ("hostname anti-affinity",
+                        enc.planes.anti_host_cnt.sum(dim=1) > 0)):
+        rows = (mask & live).nonzero().flatten()
+        log(f"[constrained] {name}: pending {s.count[rows].tolist()}, "
+            f"placed on existing nodes {d.verdict[rows].tolist()}, "
+            f"best option schedules "
+            f"{d.est_scheduled[:, rows].max(dim=0).values.tolist()}")
+    best = int(torch.argmin(torch.where(d.scores.valid, d.scores.waste,
+                                        float("inf"))))
+    log(f"[constrained] verdict {int(d.verdict.sum())} placed on existing "
+        f"nodes, pending after {int(d.pending_after.sum())}, options valid "
+        f"{int(d.scores.valid.sum())}, least-waste option {best} "
+        f"({int(d.est_node_count[best])} nodes), drainable "
+        f"{int(d.drainable.sum())}, blocked {int(d.has_blocker.sum())}")
+
+    cluster = ClusterTensors(nodes=enc.nodes, pending=enc.specs,
+                             scheduled=enc.scheduled, groups=groups,
+                             planes=enc.planes)
+    out = {}
+
+    def once():
+        out["once"] = autoscale_step.run_once_sim(
+            cluster, dims, max_new_nodes=MAX_NEW_NODES,
+            max_pods_per_node=MAX_PODS_PER_NODE, with_constraints=True)
+
+    ms = host_ms(once, CON_PHASED_STEPS, warmup=0)
+    up, down = out["once"]
+    assert_finite("[constrained] run_once_sim", (up, down))
+    log(f"[constrained] run_once_sim with constraints, step ms over "
+        f"{CON_PHASED_STEPS} steps: {ms}; fits existing "
+        f"{int(up.fits_existing.sum())}, best {int(up.best)}, drainable "
+        f"{int(down.removal.drainable.sum())} ({card})")
+
+
+def constrained_cpu_card_phase(dims, card):
+    """Phase 11: the constrained steps on the CPU and on the card on the
+    every-kind world (kinds_objects) at 512 nodes."""
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        e, gr = encode_world(kinds_objects(SMALL_NODES), dev)
+        cap = torch.full((gr.ng,), MAX_NEW_NODES, dtype=torch.int32,
+                         device=dev)
+        w0 = wave_counts()
+        fused = autoscale_step.run_once_fused(
+            e.nodes, e.specs, e.scheduled, gr, cap, dims,
+            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
+            planes=e.planes, with_constraints=True)
+        up = autoscale_step.scale_up_sim(
+            e.nodes, e.specs, e.scheduled, gr, dims,
+            max_new_nodes=MAX_NEW_NODES, planes=e.planes,
+            with_constraints=True)
+        down = autoscale_step.scale_down_sim(
+            e.nodes, e.specs, e.scheduled,
+            max_pods_per_node=MAX_PODS_PER_NODE, planes=e.planes,
+            max_zones=dims.max_zones, with_constraints=True)
+        w1 = wave_counts()
+        wave_row = int((e.specs.count == KINDS_WAVE_PODS).nonzero()[0])
+        capped = int(fused[0].verdict[wave_row])
+        log(f"[constrained-cpu-card] {dev}: kinds "
+            f"{json.dumps(constraint_kinds(e))}; waves {w1[0] - w0[0]}, flag "
+            f"reads {w1[1] - w0[1]}; the one-zone spread placed {capped} of "
+            f"{KINDS_WAVE_PODS}")
+        if capped != 128:
+            raise AssertionError(f"the one-zone spread placed {capped}, not "
+                                 f"the MAX_WAVES cap of 128")
+        runs[dev] = {"run_once_fused": fused, "scale_up_sim": up,
+                     "scale_down_sim": down}
+    for name in runs["cpu"]:
+        n_leaves, worst = compare_cpu_card(f"[constrained-cpu-card] {name}",
+                                           runs["cpu"][name],
+                                           runs[DEVICE][name])
+        log(f"[constrained-cpu-card] 512-node {name}: {n_leaves} leaves, "
+            f"every int and bool leaf byte-equal CPU vs card; worst float "
+            f"relative difference {worst:.3g} ({card})")
+    chosen = []
+    for dev in ("cpu", DEVICE):
+        sc = runs[dev]["run_once_fused"][0].scores
+        chosen.append(int(torch.argmin(torch.where(sc.valid, sc.waste,
+                                                   float("inf")))))
+    if chosen[0] != chosen[1]:
+        raise AssertionError(f"least-waste option {chosen} CPU vs card")
+
+
+def constrained_loop_world(n_nodes, n_pods,
+                           residents_per_node=RESIDENTS_PER_NODE):
+    """The constrained bench world as a FakeCluster: node groups ng{t} of
+    the bench templates, node i in ng{i % 6} (template i % 6 has its pool,
+    disk and zone labels), its residents, and `n_pods` pending pods p{seq}
+    of group seq % POD_GROUPS. Returns (fake, make_pod) for LoopScript."""
+    from kubernetes_autoscaler_tpu_torch.utils.fakecluster import FakeCluster
+
+    nodes, residents, templates = bench_objects(
+        n_nodes, 0, POD_GROUPS, NODEGROUPS, residents_per_node,
+        constrained=True)
+    fake = FakeCluster()
+    for t, (tmpl, _, _) in enumerate(templates):
+        fake.add_node_group(f"ng{t}", tmpl, min_size=0, max_size=4 * n_nodes)
+    for i, nd in enumerate(nodes):
+        fake.add_existing_node(f"ng{i % 6}", nd)
+    for p in residents:
+        fake.add_pod(p)
+    make = bench_pod_factory(POD_GROUPS, constrained=True)
+
+    def make_pod(seq, k):
+        return make(k % POD_GROUPS, f"p{seq}")
+
+    for i in range(n_pods):
+        fake.add_pod(make_pod(i, i))
+    return fake, make_pod
+
+
+def loop_constrained_phase(card):
+    """Phase 12: the control loop on the constrained bench world at full
+    width with [loop]'s churn: one cold loop, CON_LOOP_STEPS timed."""
+    from kubernetes_autoscaler_tpu_torch.core.scaledown import native_confirm
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
+
+    t0 = time.perf_counter()
+    fake, make_pod = constrained_loop_world(LOOP_NODES, LOOP_PODS)
+    a = loop_autoscaler(fake, DEVICE)
+    script = LoopScript(fake, LOOP_NODES, LOOP_PODS, make_pod,
+                        "node-{}".format)
+    log(f"[loop-constrained] world built in {time.perf_counter() - t0:.1f} "
+        f"s: {LOOP_NODES} nodes, {RESIDENTS_PER_NODE * LOOP_NODES} residents, "
+        f"{LOOP_PODS} pending pods in {POD_GROUPS} groups, 20 of them "
+        f"constrained ({card})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = a.run_once(now=1000.0)
+    torch.cuda.synchronize()
+    log(f"[loop-constrained] cold loop {time.perf_counter() - t0} s: "
+        f"fused_mode {st.fused_mode}, pending {st.pending_pods} ({card})")
+    hist = a.metrics.histogram("function_duration_seconds")
+    sums0 = {k[0][1]: v for k, v in hist._sums.items()}
+    pack_kernel.pack_groups_batched.launches = 0
+    ms, rows = [], []
+    for loop in range(CON_LOOP_STEPS):
+        script.before(loop)
+        w0 = wave_counts()
+        s0 = dict(hist._sums)
+        t0 = time.perf_counter()
+        st = a.run_once(now=1010.0 + 10.0 * loop)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        w1 = wave_counts()
+        spans = {k[0][1]: (v - s0.get(k, 0.0)) * 1e3
+                 for k, v in hist._sums.items()}
+        rows.append({"loop": loop, "ms": ms[-1], "fused_mode": st.fused_mode,
+                     "speculation": st.speculation,
+                     "round_trips": st.loop_device_round_trips,
+                     "encode": f"{a._world_store.last_mode}/"
+                               f"{a._world_store.last_cause}",
+                     "h2d_bytes": a._world_store.last_h2d_bytes,
+                     "waves": w1[0] - w0[0], "reads": w1[1] - w0[1],
+                     "spans": {k: spans.get(k, 0.0) for k in (
+                         "snapshot_build", "fused_dispatch",
+                         "speculative_dispatch")},
+                     "scaled_up": bool(st.scale_up is not None
+                                       and st.scale_up.scaled_up),
+                     "pending": st.pending_pods})
+        script.after(loop)
+    torch.cuda.synchronize()
+    for r in rows:
+        log(f"[loop-constrained] loop {r['loop']}: {r['ms']} ms, fused_mode "
+            f"{r['fused_mode']}, speculation {r['speculation']}, round trips "
+            f"{r['round_trips']}, encode {r['encode']}, world-store h2d "
+            f"{r['h2d_bytes']} B, waves {r['waves']}, flag reads {r['reads']} "
+            f"(real and speculative dispatch), host ms "
+            f"{json.dumps(r['spans'])}, scaled up {r['scaled_up']}, pending "
+            f"{r['pending']} ({card})")
+    log(f"[loop-constrained] loop ms over {CON_LOOP_STEPS} loops: p50 "
+        f"{pct(ms, 50)} p90 {pct(ms, 90)}; K1 launches "
+        f"{pack_kernel.pack_groups_batched.launches} ({card})")
+    sums = {k[0][1]: v - sums0.get(k[0][1], 0.0)
+            for k, v in hist._sums.items()}
+    total = sum(ms) / 1e3
+    for name in ("snapshot_build", "fused_dispatch", "fused_harvest",
+                 "scale_up", "scale_down_update", "scale_down_confirm",
+                 "speculative_dispatch", "main"):
+        v = sums.get(name, 0.0)
+        log(f"[loop-constrained] phase {name} total {v} s over "
+            f"{CON_LOOP_STEPS} loops ({100.0 * v / total:.1f} % of the "
+            f"loops' time) ({card})")
+    if any(r["fused_mode"] != "fused" for r in rows):
+        raise AssertionError("a constrained loop ran phased")
+    if any(r["round_trips"] > 2 for r in rows):
+        raise AssertionError("a constrained loop took more than 2 round trips")
+    if not native_confirm.available():
+        raise AssertionError("the native confirmation is not available")
+
+
+def loop_constrained_cpu_card_phase(card):
+    """Phase 13: the constrained loop world at 512 nodes with unneeded time
+    0 (the planner confirms and deletes nodes under constraints), 8 loops on
+    the CPU and 8 on the card: every loop's decision-surface digests, fused
+    mode, speculation outcome and round trips equal; the native
+    confirmation ran. Two residents a node, as [loop-cpu-card]'s world: with
+    eight, every node holds an `app: a3` resident, the anti-affinity groups
+    fit nowhere and every loop scales up, which leaves scale-down no loop."""
+    from kubernetes_autoscaler_tpu_torch.core.scaledown import native_confirm
+
+    real = native_confirm.confirm
+    runs, confirms = {}, {}
+    for dev in ("cpu", DEVICE):
+        fake, make_pod = constrained_loop_world(
+            LOOP_SMALL_NODES, CON_LOOP_SMALL_PODS, residents_per_node=2)
+        a = loop_autoscaler(fake, dev, capture_verdicts=True, unneeded_s=0.0)
+        script = LoopScript(fake, LOOP_SMALL_NODES, CON_LOOP_SMALL_PODS,
+                            make_pod, "node-{}".format)
+        times = []
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                times.append((time.perf_counter() - t0) * 1e3)
+
+        native_confirm.confirm = timed
+        try:
+            rows, deleted = [], 0
+            for loop in range(LOOP_STEPS):
+                script.before(loop)
+                st = a.run_once(now=1000.0 + 10.0 * loop)
+                rows.append(loop_surfaces(a, st))
+                deleted += len(st.scale_down_deleted)
+                script.after(loop)
+        finally:
+            native_confirm.confirm = real
+        runs[dev], confirms[dev] = rows, times
+        log(f"[loop-constrained-cpu-card] {dev}: {deleted} nodes deleted in "
+            f"{LOOP_STEPS} loops; native confirmation ran {len(times)} "
+            f"times, ms {times}")
+        if not times:
+            raise AssertionError(f"the native confirmation never ran on {dev}")
+        if not deleted:
+            raise AssertionError(f"no node was deleted on {dev}")
+    for loop, (c, g) in enumerate(zip(runs["cpu"], runs[DEVICE])):
+        if c != g:
+            raise AssertionError(f"[loop-constrained-cpu-card] loop {loop}: "
+                                 f"CPU {c} vs card {g}")
+        log(f"[loop-constrained-cpu-card] loop {loop}: digests equal CPU vs "
+            f"card, fused_mode {c['fused_mode']}, speculation "
+            f"{c['speculation']}, round trips {c['round_trips']} ({card})")
+
+
 def profile_loop(card, a, script, first, out_dir):
     """The loop's profile under --profile: loops `first` .. `first` + 3 of
     the churn script under cProfile, then one more under torch.profiler."""
@@ -1271,6 +1900,14 @@ def main() -> int:
     for source, lib in libs.items():
         for name, regs, spills in ptxas_report(lib.with_suffix(".log")):
             log(f"[build] {source} {name}: {regs} registers, {spills}")
+    # the host library of the native scale-down confirmation
+    from kubernetes_autoscaler_tpu_torch.core.scaledown import native_confirm
+
+    t0 = time.perf_counter()
+    if not native_confirm.available():
+        raise AssertionError("the native confirmation did not build")
+    log(f"[build] host csrc/host/{native_confirm.SOURCE} with "
+        f"{build.host_compiler()} in {time.perf_counter() - t0:.2f} s")
 
     k1, k1_plain = (pack_kernel.pack_groups_batched,
                     pack_kernel.pack_groups_batched_plain)
@@ -1302,8 +1939,15 @@ def main() -> int:
     k1_err = max(k1_err, err)
     # 9. the control loop, CPU against the card at 512 nodes
     loop_cpu_card_phase(card)
+    # 10-13. the constrained tier: the fused step at full width, the steps
+    # CPU against the card, the control loop at full width and CPU against
+    # the card
+    constrained_phase(dims, card, args.profile)
+    constrained_cpu_card_phase(dims, card)
+    loop_constrained_phase(card)
+    loop_constrained_cpu_card_phase(card)
 
-    # 10. result: `ms` is the kernel as launched from Python (CUDA events
+    # 14. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{

@@ -1,5 +1,6 @@
-"""ctypes binding for the native confirmation pass (kaconfirm.cc in
-libkacodec.so) + the planner-facing wrapper.
+"""ctypes binding for the native confirmation pass (the port's own
+csrc/host/kaconfirm.cc, built on first use by ops/kernels/build.build_host)
++ the planner-facing wrapper.
 
 The native kernel covers the common case AND the constrained tier (zone- and
 host-kind topology spread, host/zone required anti-affinity AND required
@@ -13,15 +14,12 @@ property-test the two against each other.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
+import logging
 from dataclasses import dataclass
 
 import numpy as np
 
-_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "sidecar")
-_LIB_PATH = os.path.join(_DIR, "libkacodec.so")
+SOURCE = "kaconfirm.cc"
 _lib = None
 _available: bool | None = None
 
@@ -30,16 +28,15 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _DIR, "-s"], check=True)
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.build import build_host
+
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(build_host(SOURCE)))
     except OSError:
         # a binary built by a different toolchain (e.g. newer libstdc++)
         # fails to load — rebuild once with the local compiler rather than
         # silently abandoning the native tier
-        subprocess.run(["make", "-C", _DIR, "-s", "-B"], check=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(build_host(SOURCE, force=True)))
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -71,7 +68,10 @@ def available() -> bool:
         try:
             _load()
             _available = True
-        except Exception:
+        except (OSError, RuntimeError) as e:
+            logging.getLogger(__name__).warning(
+                "native confirmation pass unavailable, the planner takes "
+                "the Python pass: %s", e)
             _available = False
     return _available
 

@@ -565,6 +565,9 @@ class Planner:
                     torch.from_numpy(cand).to(dev),
                     torch.from_numpy(dest_allowed).to(dev),
                     max_pods_per_node=self.options.max_pods_per_node,
+                    planes=enc.planes,
+                    max_zones=enc.dims.max_zones,
+                    with_constraints=enc.has_constraints,
                 )
             # ONE device->host transfer for the whole verdict (the fields are
             # consumed host-side here and in nodes_to_delete; per-leaf

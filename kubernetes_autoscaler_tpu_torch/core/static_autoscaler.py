@@ -18,7 +18,7 @@ where every tensor the loop makes lives: the world store, the limiter cap,
 the group tensors, the probe. Features the port does not have yet raise
 NotImplementedError naming their ROADMAP item instead of running an
 approximation: the shadow audit, the flight journal, the gRPC expander,
-async node-group creation, a device mesh and constrained worlds.
+async node-group creation and a device mesh.
 """
 
 from __future__ import annotations
@@ -703,12 +703,6 @@ class StaticAutoscaler:
                         "world_store_h2d_bytes_total", help=H2D_HELP).inc(
                         sum(int(v.nbytes)
                             for v in (enc.host_arrays or {}).values()))
-            if enc.has_constraints:
-                # the port's ops serve unconstrained worlds only
-                raise NotImplementedError(
-                    "a world with topology-coupled constraints (pod "
-                    "(anti-)affinity, topology spread) needs the "
-                    "constrained tier, which is not ported (ROADMAP A5)")
             if self.quota is not None:
                 self.quota.registry = enc.registry
             self.scale_up_orchestrator.quota = self.quota
@@ -1199,7 +1193,7 @@ class StaticAutoscaler:
                     registry=self.metrics)
             args = (st.nodes, st.specs, st.scheduled, prep.group_tensors,
                     prep.limit_cap_dev)
-            kwargs = _fused_kwargs(statics)
+            kwargs = _fused_kwargs(statics, st.planes)
             with self.metrics.time_function("fused_dispatch"), \
                     self.planner.phases.phase("dispatch", fused=1):
                 dec_dev, resident = self.supervisor.guard(
@@ -1280,7 +1274,7 @@ class StaticAutoscaler:
         def _issue():
             dec_dev, resident = autoscale_step.run_once_fused(
                 nodes_t, specs_t, sched_t, prep.group_tensors,
-                prep.limit_cap_dev, **_fused_kwargs(ctx["statics"]))
+                prep.limit_cap_dev, **_fused_kwargs(ctx["statics"], planes_t))
             # trace=False: the loop's trace spans close LIFO before the
             # speculative result exists — the fetch span rides next loop's
             # harvest instead
@@ -1683,12 +1677,14 @@ class StaticAutoscaler:
                 pass
 
 
-def _fused_kwargs(statics: dict) -> dict:
+def _fused_kwargs(statics: dict, planes) -> dict:
     """The port's `run_once_fused` keywords from the reference's static
-    arguments: the drain sweep sizes its own chunks (ops/drain.
-    default_chunk) and constrained worlds never reach the fused program."""
-    return {k: statics[k]
-            for k in ("dims", "max_new_nodes", "max_pods_per_node")}
+    arguments and the resident constraint `planes`: the drain sweep sizes
+    its own chunks (ops/drain.default_chunk), so `chunk` is not passed."""
+    return {**{k: statics[k] for k in ("dims", "max_new_nodes",
+                                       "max_pods_per_node",
+                                       "with_constraints")},
+            "planes": planes}
 
 
 def _refuse_unported_options(o: AutoscalingOptions) -> None:

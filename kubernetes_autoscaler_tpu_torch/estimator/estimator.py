@@ -9,10 +9,10 @@ for drop-in parity; the orchestrator prefers the batched all-groups kernel
 custom estimator.
 
 The port's copy: the limiter vectors are torch tensors on the group
-tensors' device, and the estimate runs the port's unconstrained,
-single-device `estimate_all` (the planes/nodes/constraint/mesh context is
-kept for callers but not passed on: the control loop refuses constrained
-worlds and meshes before it gets here).
+tensors' device, and the estimate runs the port's single-device
+`estimate_all` with the planes/nodes/constraint context (the mesh is kept
+for callers but not passed on: the control loop refuses a mesh before it
+gets here).
 
 Threshold limiters mirror estimator/threshold_based_limiter.go and friends:
 a static cap (--max-nodes-per-scaleup), cluster-capacity and per-group caps,
@@ -147,7 +147,9 @@ class BinpackingEstimator:
         max_new[group_index] = min(int(max_new[group_index]), limit)
         capped = group_tensors.replace(max_new=max_new)
         result = estimate_all(specs, capped, self.dims,
-                              self.max_new_nodes_static)
+                              self.max_new_nodes_static,
+                              planes=self.planes, nodes=self.nodes,
+                              with_constraints=self.with_constraints)
         return (int(result.node_count[group_index]),
                 result.scheduled[group_index].cpu().numpy())
 
@@ -168,7 +170,9 @@ class BinpackingEstimator:
                                    group_tensors.max_new))
         )
         return estimate_all(specs, capped, self.dims,
-                            self.max_new_nodes_static)
+                            self.max_new_nodes_static,
+                            planes=self.planes, nodes=self.nodes,
+                            with_constraints=self.with_constraints)
 
 
 def explain_refused_groups(

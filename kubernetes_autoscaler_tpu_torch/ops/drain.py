@@ -1,8 +1,8 @@
 """Batched node-removal (drain) simulation for scale-down.
 
 Counterpart of the reference package's `ops/drain.py` (RemovalResult,
-simulate_removals) for the unconstrained case. Every candidate node is
-simulated independently, in chunks of candidates:
+simulate_removals). Every candidate node is simulated independently, in
+chunks of candidates:
 
   1. its resident movable pods are gathered from a by-node sorted window and
      compacted into at most K per-group counts,
@@ -11,6 +11,14 @@ simulated independently, in chunks of candidates:
      [C, N, R] tensors; the reference leaves this step to XLA),
   3. per-pod destinations are rebuilt from the groups' cumulative placement
      curves by `searchsorted`, one call per slot.
+
+With `with_constraints` the re-placement is topology-aware: host-level
+gates join the predicate plane, the candidate's own residents leave its
+zone's counts before its pods are re-placed (the reference's ghost node),
+and constrained groups re-place through the wave placer
+(ops/constrained.py), the candidates of a chunk being its lanes. Only the
+gathered group of each (candidate, slot) is gated, as a [C, N] plane built
+from [C, Z] adjusted zone counts; no [C, G, N] plane is formed.
 
 A node with more than `max_groups_per_node` distinct shapes is reported
 undrainable (its overflow pods count in n_failed). The chunk size changes
@@ -30,10 +38,17 @@ from dataclasses import dataclass
 import torch
 
 from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
+    AffinityPlanes,
     NodeTensors,
     PodGroupTensors,
     ScheduledPodTensors,
     _Tree,
+)
+from kubernetes_autoscaler_tpu_torch.ops.constrained import (
+    BIG,
+    GroupConstraints,
+    place_lanes,
+    zone_agg,
 )
 from kubernetes_autoscaler_tpu_torch.ops.pack import fit_count
 from kubernetes_autoscaler_tpu_torch.ops.predicates import feasibility_mask
@@ -102,12 +117,18 @@ def simulate_removals(
     max_pods_per_node: int = 128,
     chunk: int | None = None,
     max_groups_per_node: int = 16,
+    planes: AffinityPlanes | None = None,
+    max_zones: int = 16,
+    with_constraints: bool = False,
 ) -> RemovalResult:
     """Simulate removing every candidate node independently. `chunk`
-    (candidates per chunk) defaults to `default_chunk`."""
+    (candidates per chunk) defaults to `default_chunk`. `with_constraints`
+    (with the resident `planes`) makes the re-placement topology-aware."""
     return _sweep(nodes, specs, scheduled, candidates, dest_allowed,
                   max_pods_per_node, chunk, max_groups_per_node,
-                  explain=False)
+                  explain=False,
+                  planes=planes if with_constraints else None,
+                  max_zones=max_zones)
 
 
 def failure_reasons(
@@ -132,9 +153,11 @@ def failure_reasons(
 
 
 def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
-           max_pods_per_node, chunk, max_groups_per_node, explain: bool):
+           max_pods_per_node, chunk, max_groups_per_node, explain: bool,
+           planes: AffinityPlanes | None = None, max_zones: int = 16):
     """The chunked sweep behind both entry points: RemovalResult, or with
-    `explain` the RemovalReasons of the same first-fit."""
+    `explain` the RemovalReasons of the same first-fit. `planes` turns on
+    the topology-aware re-placement."""
     n = nodes.n
     g_total = specs.g
     mpn = max_pods_per_node
@@ -150,6 +173,10 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
     free0 = nodes.free()
     dest_ok = dest_allowed & nodes.valid & nodes.ready & nodes.schedulable
     node_ids = torch.arange(n, dtype=i32, device=dev)
+    topo = _Topology(nodes, specs, planes, max_zones) if planes is not None \
+        else None
+    if topo is not None:
+        feas_gn = feas_gn & topo.host_gate
 
     # resident pods sorted by node: each candidate's pods are one window
     sort_key = torch.where(scheduled.valid, scheduled.node_idx, n + 1)
@@ -194,6 +221,12 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
         cnt_k = torch.where(filled, torch.gather(counts[:, :g_total], 1, gidx), 0)
 
         dest = dest_ok[None, :] & (node_ids[None, :] != c[:, None])    # [C, N]
+        if topo is not None:
+            # one read per chunk: which (candidate, slot) lanes have a wave
+            # loop to run
+            slow = (topo.is_con[gidx] & (cnt_k > 0)).T.contiguous()    # [K, C]
+            slow_h = slow.sum(dim=1).tolist()
+            place_lanes.flag_reads += 1
 
         # --- K-step first-fit of whole groups onto destinations ---
         free_c = free0.expand(cn, n, free0.shape[1])
@@ -202,14 +235,30 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
             gi = gidx[:, j]
             want = cnt_k[:, j]
             reqg = specs.req[gi]                                       # [C, R]
+            feas_row = feas_gn[gi] & dest
+            if topo is not None:
+                feas_row = feas_row & topo.zone_gate(gi, c.long())
             fit = fit_count(free_c, reqg)                              # [C, N]
-            fit = torch.where(feas_gn[gi] & dest, fit, 0)
+            fit = torch.where(feas_row, fit, 0)
             fit = torch.where(limit_g[gi][:, None], fit.clamp(max=1), fit)
             fit = torch.minimum(fit, want[:, None])
             cum = torch.cumsum(fit, dim=1)
             place = torch.minimum((want[:, None] - (cum - fit)).clamp(min=0), fit)
             place = place.to(i32)
-            free_c = free_c - place[:, :, None] * reqg[:, None, :]
+            new_free = free_c - place[:, :, None] * reqg[:, None, :]
+            if topo is not None and slow_h[j]:
+                # the lanes whose group is constrained and has pods: the
+                # first slow_h[j] of a stable sort that puts them first
+                lanes = torch.argsort((~slow[j]).to(i32),
+                                      stable=True)[:slow_h[j]]
+                lf, lp = place_lanes(
+                    free_c[lanes], feas_row[lanes], reqg[lanes], want[lanes],
+                    limit_g[gi[lanes]],
+                    topo.lane_constraints(gi[lanes], c[lanes].long()),
+                    max_zones)
+                new_free.index_copy_(0, lanes, lf)
+                place.index_copy_(0, lanes, lp)
+            free_c = new_free
             placed_k.append(place.sum(dim=1))
             cumplace_k.append(torch.cumsum(place, dim=1))
         placed_k = torch.stack(placed_k, dim=1)                        # [C, K]
@@ -254,6 +303,95 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
         pod_slot=pod_slot,
         feas=feas_gn,
     )
+
+
+class _Topology:
+    """The constrained sweep's candidate-independent state: host-level gates
+    and zone aggregates over the real nodes; `zone_gate` and
+    `lane_constraints` adjust the zone counts per candidate (its residents
+    leave its zone) for the group gathered on each lane."""
+
+    def __init__(self, nodes: NodeTensors, specs: PodGroupTensors,
+                 planes: AffinityPlanes, max_zones: int):
+        from kubernetes_autoscaler_tpu_torch.ops.predicates import (
+            selector_match,
+        )
+
+        self.specs, self.planes, self.max_zones = specs, planes, max_zones
+        n = nodes.n
+        self.zval = nodes.zone_id > 0
+        self.zcl = nodes.zone_id.clamp(0, max_zones - 1)
+        self.zones = torch.arange(max_zones, dtype=self.zcl.dtype,
+                                  device=self.zcl.device)
+        self.node_ids = torch.arange(n, dtype=torch.int32,
+                                     device=self.zcl.device)
+        zone_kinds = (specs.spread_kind == 2) | (specs.aff_kind == 2)
+        self.host_gate = ((planes.anti_host_cnt == 0)
+                          & torch.where(((specs.aff_kind == 1)
+                                         & ~specs.aff_self)[:, None],
+                                        planes.aff_cnt > 0, True)
+                          & torch.where(zone_kinds[:, None],
+                                        self.zval[None, :], True))
+        self.anti_zone = zone_agg(planes.anti_zone_cnt, nodes.zone_id,
+                                  max_zones)
+        self.aff_zone = zone_agg(planes.aff_cnt, nodes.zone_id, max_zones)
+        self.cnt_zone = zone_agg(planes.spread_cnt, nodes.zone_id, max_zones)
+        elig_host = selector_match(nodes.label_hash, specs) \
+            & nodes.valid[None, :]
+        self.s_elig = torch.where((specs.spread_kind == 2)[:, None],
+                                  elig_host & self.zval[None, :], elig_host)
+        self.elig_zone = zone_agg(self.s_elig, nodes.zone_id, max_zones)
+        self.is_con = ((specs.spread_kind > 0) | (specs.aff_kind > 0)
+                       | specs.anti_self_zone)
+        self.aff2 = (specs.aff_kind == 2) & ~specs.aff_self
+
+    def _adjusted(self, agg: torch.Tensor, plane: torch.Tensor,
+                  gi: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """i32[C, Z]: the zone totals `agg` of group gi[k], less what
+        candidate c[k] holds in its own zone (`plane[gi, c]`)."""
+        dz = ((self.zones[None, :] == self.zcl[c][:, None])
+              & self.zval[c][:, None]).to(torch.int32)
+        return agg[gi] - dz * plane[gi, c][:, None]
+
+    def _at_nodes(self, per_zone: torch.Tensor) -> torch.Tensor:
+        """[C, Z] → [C, N]: each node's zone's value."""
+        return per_zone.gather(
+            1, self.zcl.long()[None, :].expand(per_zone.shape[0], -1))
+
+    def zone_gate(self, gi: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """bool[C, N]: the zone-level anti-affinity block and non-self zone
+        affinity of group gi[k] with candidate c[k] drained."""
+        anti = self._adjusted(self.anti_zone, self.planes.anti_zone_cnt, gi, c)
+        aff = self._adjusted(self.aff_zone, self.planes.aff_cnt, gi, c)
+        gate = ~(self.zval[None, :] & (self._at_nodes(anti) > 0))
+        return gate & torch.where(self.aff2[gi][:, None],
+                                  self.zval[None, :] & (self._at_nodes(aff) > 0),
+                                  True)
+
+    def lane_constraints(self, gi: torch.Tensor,
+                         c: torch.Tensor) -> GroupConstraints:
+        """The wave placer's constraints for group gi[k] re-placing the pods
+        of candidate c[k], one lane each."""
+        specs, planes = self.specs, self.planes
+        aff = self._adjusted(self.aff_zone, planes.aff_cnt, gi, c)
+        elig = self._adjusted(self.elig_zone, self.s_elig, gi, c) > 0
+        return GroupConstraints(
+            s_kind=specs.spread_kind[gi], s_skew=specs.max_skew[gi],
+            s_self=specs.spread_self[gi],
+            s_cnt_node=planes.spread_cnt[gi],
+            s_elig=self.s_elig[gi] & (self.node_ids[None, :] != c[:, None]),
+            a_kind=specs.aff_kind[gi], a_self=specs.aff_self[gi],
+            a_any=specs.aff_match_any[gi],
+            a_ok_node=torch.where(
+                (specs.aff_kind[gi] == 1)[:, None], planes.aff_cnt[gi] > 0,
+                self.zval[None, :] & (self._at_nodes(aff) > 0)),
+            anti_self_zone=specs.anti_self_zone[gi],
+            cnt_zone_base=self._adjusted(self.cnt_zone, planes.spread_cnt,
+                                         gi, c),
+            elig_zone_base=elig,
+            min_host_base=torch.full(gi.shape, BIG,
+                                     dtype=torch.int32, device=gi.device),
+            zone_cl=self.zcl[None, :], zone_valid=self.zval[None, :])
 
 
 def _explain(blocker, movable, nz, gidx, cnt_k, placed_k, kk):

@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled on first use
 by `nvcc` for Hopper (`sm_90a`) into `_build/` beside the sources (listed in
 .gitignore), then loaded with ctypes. The library name carries a hash of the
 source and flags, so an edited source rebuilds and an unchanged one loads
 the existing library. `build` starts one `nvcc` per missing source, all at
-once, and waits for all of them. Nothing here runs at import time.
+once, and waits for all of them. `build_host` does the same for the host
+C++ sources in `csrc/host/` with the host compiler (`$CXX`, else g++).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_DIR = CSRC_DIR / "host"
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -86,3 +91,30 @@ def load(source: str) -> ctypes.CDLL:
     if source not in _loaded:
         _loaded[source] = ctypes.CDLL(str(build([source])[source]))
     return _loaded[source]
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, else g++ from PATH."""
+    return os.environ.get("CXX") or shutil.which("g++") or "g++"
+
+
+def build_host(source: str, force: bool = False) -> Path:
+    """The library of `source` (a file name in csrc/host/), compiled with
+    the host compiler if it is missing (or `force`). Raises with the
+    compiler's output if the build fails."""
+    src = HOST_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+    if lib.exists() and not force:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([host_compiler(), *GXX_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{host_compiler()} failed for {source} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

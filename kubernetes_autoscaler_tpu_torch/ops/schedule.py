@@ -1,11 +1,11 @@
 """Scheduling pending pods onto the existing cluster (filter-out-schedulable).
 
-Counterpart of the reference package's `ops/schedule.py` for the
-unconstrained, unsharded case: a predicate plane over every (pending group,
-node) pair, then one FFD pack of all groups onto the current free capacity
-— the serial pack (K1), or with a worthwhile wavefront plan the wavefront
-pack (K2). `plan_wavefronts` builds that plan on the host from the
-placement-independent mask.
+Counterpart of the reference package's `ops/schedule.py` for one device: a
+predicate plane over every (pending group, node) pair, then one FFD pack of
+all groups onto the current free capacity — the serial pack (K1), with a
+worthwhile wavefront plan the wavefront pack (K2), or with topology-coupled
+constraints the constrained pack (ops/constrained.py). `plan_wavefronts`
+builds the wavefront plan on the host from the placement-independent mask.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
+    AffinityPlanes,
     NodeTensors,
     PodGroupTensors,
     ScheduledPodTensors,
@@ -57,17 +58,31 @@ def schedule_pending_on_existing(
     nodes: NodeTensors,
     specs: PodGroupTensors,
     scheduled: ScheduledPodTensors | None = None,
+    planes: AffinityPlanes | None = None,
+    max_zones: int = 16,
+    with_constraints: bool = False,
     wavefront_plan: WavefrontPlan | None = None,
 ) -> PackResult:
     """First-fit all pending groups onto current free capacity; `scheduled`
     of the result says how many pods of each group fit the existing cluster.
 
-    A worthwhile `wavefront_plan` (see plan_wavefronts) batches the group
+    `with_constraints` (with the resident `planes`) selects the
+    topology-coupled pack (ops/constrained.py), ahead of any plan. A
+    worthwhile `wavefront_plan` (see plan_wavefronts) batches the group
     scan to depth W; otherwise the serial pack runs. The plan mask is a
     superset of the runtime mask here (it omits the resident
     self-anti-affinity subtraction), which pack_groups_wavefront allows."""
     free, mask, req, count, order, limit_one = filter_pack_inputs(
         nodes, specs, scheduled)
+    if with_constraints and planes is not None:
+        from kubernetes_autoscaler_tpu_torch.ops import constrained
+
+        mask = mask & constrained.planes_static_mask(
+            specs, planes, nodes.zone_id, max_zones)
+        cons = constrained.constraints_for_nodes(specs, planes, nodes,
+                                                 max_zones)
+        return constrained.pack_groups_constrained(
+            free, mask, req, count, order, limit_one, cons, max_zones)
     if wavefront_plan is not None and wavefront_plan.worthwhile:
         return pack_groups_wavefront(free, mask, req, count, limit_one,
                                      wavefront_plan)

@@ -188,7 +188,12 @@ class TensorClusterSnapshot:
         from kubernetes_autoscaler_tpu_torch.ops.schedule import schedule_pending_on_existing
 
         s = self.state
-        return schedule_pending_on_existing(s.nodes, s.specs, s.scheduled)
+        return schedule_pending_on_existing(
+            s.nodes, s.specs, s.scheduled,
+            planes=s.planes,
+            max_zones=self.enc.dims.max_zones,
+            with_constraints=self.enc.has_constraints,
+        )
 
     def apply_placement(self, placed: torch.Tensor) -> None:
         """Charge a PackResult.placed (i32[G, N]) onto node allocations and
@@ -224,7 +229,11 @@ class TensorClusterSnapshot:
             s.nodes, s.specs, s.scheduled,
             torch.as_tensor(np.asarray(candidate_indices, np.int32),
                             device=dev),
-            dest_allowed, max_pods_per_node=max_pods_per_node, chunk=chunk)
+            dest_allowed, max_pods_per_node=max_pods_per_node, chunk=chunk,
+            planes=s.planes,
+            max_zones=self.enc.dims.max_zones,
+            with_constraints=self.enc.has_constraints,
+        )
 
 
 def _grow_nodes(nt: NodeTensors) -> NodeTensors:

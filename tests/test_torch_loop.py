@@ -13,7 +13,7 @@ Also pinned here: the port's fused loop equals its phased loop; a churned
 plane discards an armed speculation through the identity gate and a steady
 world harvests one; the compile census does not grow after the first
 loop; the features the port has not got raise NotImplementedError naming
-their ROADMAP item; and the module-level pieces the loop rides — the
+their ROADMAP item, and a constrained world does not; and the module-level pieces the loop rides — the
 world store under fuzzed churn, the reason planes, `failure_reasons`,
 `AsyncFetch`, the encode seam that must copy (never alias) host arrays,
 the snapshot's verbs, and the device observability (compile census, HBM
@@ -245,6 +245,9 @@ def test_unported_option_raises(option, value, item):
 
 
 def test_mesh_and_constrained_world_raise():
+    """A mesh on the orchestrator still raises (ROADMAP A9); a world with
+    topology-coupled constraints no longer does: the constrained tier is
+    ported, and the loop stays fused on it."""
     fake = _world("torch")
     a = _autoscaler("torch", fake)
     a.scale_up_orchestrator.mesh = object()
@@ -260,8 +263,8 @@ def test_mesh_and_constrained_world_raise():
     fake.add_pod(p)
     for incremental in (True, False):
         a = _autoscaler("torch", fake, incremental_encode=incremental)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            a.run_once(now=1000.0)
+        st = a.run_once(now=1000.0)
+        assert st.fused_mode == "fused"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
