@@ -50,7 +50,28 @@ its own failure:
                 the CPU and 8 on the card: every loop's decision-surface
                 digests, fused mode, speculation outcome and round trips
                 equal
- 10. constrained  `run_once_fused` with the constrained tier on the main
+ 10. journal    the loop of 8 with the flight journal and the shadow audit
+                on (cold loop, 8 timed): loop times beside [loop]'s, the
+                journal's and the audit's time a loop, journal bytes,
+                rotations and drops, the audit's checks by surface and
+                outcome, round trips and K1 launches a loop; every loop's
+                decision digests (scale-up, reasons, drain), fused mode,
+                speculation and round trips equal [loop]'s; no divergence,
+                the plane audited every loop, no rotation or drop; the
+                journal replayed on the card without drift (its time a loop,
+                K1 launches); one more loop with the `flip_bit` fault on
+                the verdict plane, caught in that loop with its bundle
+ 11. journal-cpu-card  the loop of 9 journaled: recorded on the card and
+                replayed on the CPU, recorded on the CPU and replayed on the
+                card, both without drift, each side's backend named
+ 12. entry      [loop]'s world (and one unfittable pod) as a scenario file:
+                `python -m kubernetes_autoscaler_tpu_torch` with the journal
+                and the shadow audit, 4 loops, /healthz and /metrics scraped
+                while it serves (K1 launches read at its exit); then
+                `python -m kubernetes_autoscaler_tpu_torch.replay` (exit 0)
+                and `python -m kubernetes_autoscaler_tpu_torch.lineage ...
+                why` on the unfittable pod (exit 0): exit codes and times
+ 13. constrained  `run_once_fused` with the constrained tier on the main
                 world with BASELINE.json config #5's constraints (20 of the
                 25 pending groups: zone spread, hostname spread, hostname
                 anti-affinity and zone affinity to residents): step and
@@ -58,17 +79,17 @@ its own failure:
                 torch.profiler, peak memory, the decision; the wave-check
                 interval swept (outputs byte-equal); `run_once_sim` with
                 constraints
- 11. constrained-cpu-card  a 512-node world with every constraint kind:
+ 14. constrained-cpu-card  a 512-node world with every constraint kind:
                 `run_once_fused`, `scale_up_sim` and `scale_down_sim` with
                 constraints on the CPU and on the card, leaves equal as in
                 7, the same chosen option, a group capped at MAX_WAVES
- 12. loop-constrained  the control loop on the constrained main world with
+ 15. loop-constrained  the control loop on the constrained main world with
                 the churn of 8: a cold loop, 4 timed; fused, at most 2
                 round trips, the native confirmation available
- 13. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
+ 16. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
                 time 0, 8 loops on the CPU and 8 on the card: digests equal
                 every loop, nodes deleted, the native confirmation ran
- 14. result     the kernels line, the card line, and the last line
+ 17. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -79,10 +100,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -602,7 +629,6 @@ def profile_step(step, step_ms_p50, out_dir, tag="[profile]",
     of device kernels, and the device's busy share of an unprofiled step
     (summed kernel time over the step's p50). The trace goes to out_dir
     (none without it). Returns (kernels, kernel ms)."""
-    import os
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1050,7 +1076,10 @@ def loop_world(n_nodes, n_pods):
     return fake
 
 
-def loop_autoscaler(fake, device, capture_verdicts=False, unneeded_s=3600.0):
+def loop_autoscaler(fake, device, capture_verdicts=False, unneeded_s=3600.0,
+                    **extra):
+    """bench_runonce_e2e's options (LOOP_FLAGS spells them as the command
+    line's flags) plus `extra` ones."""
     from kubernetes_autoscaler_tpu_torch.config.options import (
         AutoscalingOptions,
         NodeGroupDefaults,
@@ -1069,7 +1098,7 @@ def loop_autoscaler(fake, device, capture_verdicts=False, unneeded_s=3600.0):
         max_new_nodes_static=256, max_pods_per_node=16, drain_chunk=256,
         node_group_defaults=NodeGroupDefaults(
             scale_down_unneeded_time_s=unneeded_s,
-            scale_down_unready_time_s=3600.0), **delays)
+            scale_down_unready_time_s=3600.0), **delays, **extra)
     a = StaticAutoscaler(fake.provider, fake, options=opts,
                          eviction_sink=fake, registry=Registry(),
                          device=device)
@@ -1142,7 +1171,8 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
     """Phase 8: the control loop on the card at the bench_runonce_e2e
     world, then, with `profile_dir`, the loop's profile. Returns (K1
     launches in the timed loops, per-loop launches, max abs err of K1 on
-    the loop's inputs)."""
+    the loop's inputs, the timed loops' ms and decision surfaces — read
+    after each loop's clock stopped — for [journal] to compare with)."""
     from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
     from kubernetes_autoscaler_tpu_torch.ops.schedule import filter_pack_inputs
@@ -1169,7 +1199,7 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
     sums0 = {k[0][1]: v for k, v in hist._sums.items()}
     torch.cuda.reset_peak_memory_stats()
     side = torch.cuda.Stream()
-    ms, rows = [], []
+    ms, rows, surfaces = [], [], []
     pack_kernel.pack_groups_batched.launches = 0
     for loop in range(LOOP_STEPS):
         script.before(loop)
@@ -1200,6 +1230,7 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
             "scaled_up": bool(st.scale_up is not None
                               and st.scale_up.scaled_up),
             "pending": st.pending_pods, "unneeded": len(st.unneeded_nodes)})
+        surfaces.append(loop_surfaces(a, st))
         script.after(loop)
     torch.cuda.synchronize()
     launches = pack_kernel.pack_groups_batched.launches
@@ -1258,7 +1289,7 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
                          kernel, plain))
     if profile_dir:
         profile_loop(card, a, script, LOOP_STEPS, profile_dir)
-    return launches, [r["k1_launches"] for r in rows], err
+    return launches, [r["k1_launches"] for r in rows], err, (ms, surfaces)
 
 
 def loop_cpu_card_phase(card):
@@ -1284,6 +1315,358 @@ def loop_cpu_card_phase(card):
             f"({', '.join(f'{k} {v}' for k, v in c['digests'].items())}), "
             f"fused_mode {c['fused_mode']}, speculation {c['speculation']}, "
             f"round trips {c['round_trips']} ({card})")
+
+
+# ---------------------------------------------------------------- journal
+
+# the journal's size bound in the journal phases: its first record is the
+# whole world (≈ 40 MB at full width), which the default 64 MB bound (16 MB a
+# file) would rotate out, and replay could not rebuild loop 0 without it
+JOURNAL_MAX_MB = 1024
+# bench_runonce_e2e's options as the process entry's flags (loop_autoscaler)
+LOOP_FLAGS = ["--node-shape-bucket", "256", "--group-shape-bucket", "64",
+              "--max-new-nodes-static", "256", "--max-pods-per-node", "16",
+              "--drain-chunk", "256", "--scale-down-unneeded-time", "1h",
+              "--scale-down-unready-time", "1h"]
+ENTRY_ITERATIONS = 4
+
+
+def repo_dir(prefix: str) -> str:
+    """A fresh directory in the checkout, named so that .gitignore lists it
+    (`journal_*/`): the journals, bundles and scenarios the phases write."""
+    return tempfile.mkdtemp(prefix=prefix,
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+
+
+def journal_phase(card, loop_ref):
+    """Phase 10: the [loop] world and script on the card with the flight
+    journal and the shadow audit on; the journal replayed on the card; the
+    flip_bit fault on the verdict plane caught within its loop."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
+    from kubernetes_autoscaler_tpu_torch.replay.harness import replay_journal
+    from kubernetes_autoscaler_tpu_torch.sidecar import faults
+
+    k1 = pack_kernel.pack_groups_batched
+    tmp = repo_dir("journal_")
+    try:
+        jdir, adir = os.path.join(tmp, "journal"), os.path.join(tmp, "audit")
+        fake = loop_world(LOOP_NODES, LOOP_PODS)
+        a = loop_autoscaler(fake, DEVICE, journal_dir=jdir,
+                            journal_max_mb=JOURNAL_MAX_MB, shadow_audit=True,
+                            shadow_audit_dir=adir)
+        script = LoopScript(fake, LOOP_NODES, LOOP_PODS)
+        jw, aud = a.journal, a.shadow_auditor
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = a.run_once(now=1000.0)
+        torch.cuda.synchronize()
+        log(f"[journal] cold loop {time.perf_counter() - t0} s, journal "
+            f"{jw.overhead_ns / 1e6} ms of it, first record "
+            f"{jw.bytes} B, audit {aud.overhead_ns / 1e6} ms ({card})")
+        ms, rows = [], []
+        k1.launches = 0
+        for loop in range(LOOP_STEPS):
+            script.before(loop)
+            j0, u0, k0 = jw.overhead_ns, aud.overhead_ns, k1.launches
+            t0 = time.perf_counter()
+            st = a.run_once(now=1010.0 + 10.0 * loop)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append({"journal_ms": (jw.overhead_ns - j0) / 1e6,
+                         "audit_ms": (aud.overhead_ns - u0) / 1e6,
+                         "k1": k1.launches - k0,
+                         "surfaces": loop_surfaces(a, st),
+                         "divergent": st.audit_divergence})
+            script.after(loop)
+        torch.cuda.synchronize()
+        launches = k1.launches
+        ref_ms, ref_surfaces = loop_ref
+        for loop, (r, ref) in enumerate(zip(rows, ref_surfaces)):
+            got = r["surfaces"]
+            log(f"[journal] loop {loop}: {ms[loop]} ms ([loop] "
+                f"{ref_ms[loop]} ms), journal {r['journal_ms']} ms, audit "
+                f"{r['audit_ms']} ms, round trips {got['round_trips']}, K1 "
+                f"launches {r['k1']}, speculation {got['speculation']} "
+                f"({card})")
+            # the decision surfaces: [loop] runs without the verdict plane
+            for key in ("scaleUp", "reasons", "drain"):
+                if got["digests"][key] != ref["digests"][key]:
+                    raise AssertionError(f"[journal] loop {loop}: {key} "
+                                         f"digest differs from [loop]'s")
+            for key in ("fused_mode", "speculation", "round_trips"):
+                if got[key] != ref[key]:
+                    raise AssertionError(f"[journal] loop {loop}: {key} "
+                                         f"{got[key]} vs [loop] {ref[key]}")
+        stats = jw.stats()
+        log(f"[journal] loop ms over {LOOP_STEPS} loops: p50 {pct(ms, 50)} "
+            f"p90 {pct(ms, 90)}; [loop] p50 {pct(ref_ms, 50)} p90 "
+            f"{pct(ref_ms, 90)} ({card})")
+        journal_ms = statistics.mean(r["journal_ms"] for r in rows)
+        log(f"[journal] journal: {journal_ms} ms a loop (overhead_ns), "
+            f"{stats['records']} records, "
+            f"{stats['bytes']} B, {stats['rotations']} rotations, dropped "
+            f"{stats['drops']}, snapshot fallbacks "
+            f"{stats['snapshotFallbacks']} ({card})")
+        log(f"[journal] audit: {statistics.mean(r['audit_ms'] for r in rows)}"
+            f" ms a loop, warm-up {aud.warmup_ms} ms, checks "
+            f"{json.dumps(aud.checks)}, divergences {aud.divergences} "
+            f"({card})")
+        log(f"[journal] K1 launches {launches} in {LOOP_STEPS} loops; the "
+            f"decision digests (scale-up, reasons, drain), fused mode, "
+            f"speculation and round trips equal [loop]'s every loop ({card})")
+        if aud.divergences or any(r["divergent"] for r in rows):
+            raise AssertionError("the audit diverged on healthy loops")
+        if aud.checks["plane"]["ok"] != LOOP_STEPS + 1:
+            raise AssertionError("the plane surface was not audited every "
+                                 "loop")
+        if stats["rotations"] or stats["drops"]:
+            raise AssertionError("the journal rotated or dropped records")
+        if launches == 0:
+            raise AssertionError("the journaled loops launched K1 no time")
+
+        # the journal replayed on the card
+        k1.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = replay_journal(jdir, device=DEVICE)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        replay_launches = k1.launches
+        # the cursor-seeding contract: the replayed audit draws from the
+        # recorder's seeds (which cells it then audits rides its own,
+        # timing-based budget)
+        seeds = [[r["seed"] for r in log_[:rep["loops"]]]
+                 for log_ in (rep["audit"]["samples"], aud.sample_log)]
+        log(f"[journal] replay on the card: {rep['loops']} loops in "
+            f"{replay_s} s ({replay_s * 1e3 / rep['loops']} ms a loop, the "
+            f"snapshot's rebuild and the cold loop included), zeroDrift "
+            f"{rep['zeroDrift']}, K1 launches {replay_launches}, backend "
+            f"recorded {rep['backend']['recorded']['platform']} replayed "
+            f"{rep['backend']['replayed']['platform']}, audit seeds equal "
+            f"the recorder's {seeds[0] == seeds[1]} ({card})")
+        if not rep["zeroDrift"]:
+            raise AssertionError(f"[journal] the replay drifted: loops "
+                                 f"{rep['driftLoops']}")
+        if seeds[0] != seeds[1] or len(seeds[0]) != rep["loops"]:
+            raise AssertionError("[journal] the replayed audit's seeds differ "
+                                 "from the recorder's")
+        if replay_launches == 0:
+            raise AssertionError("the replay launched K1 no time")
+
+        # one loop with a bit of the fetched verdict plane flipped
+        faults.install([{"hook": "verdict_plane", "kind": "flip_bit",
+                         "times": 1}], seed=7)
+        try:
+            script.before(LOOP_STEPS)
+            st = a.run_once(now=1010.0 + 10.0 * LOOP_STEPS)
+        finally:
+            faults.clear()
+        with open(st.audit_bundle_path) as f:
+            bundle = json.load(f)
+        div = bundle["divergences"][0]
+        log(f"[journal] flip_bit on the verdict plane: caught in its loop "
+            f"{st.audit_divergence}, bundle "
+            f"{os.path.basename(st.audit_bundle_path)} ({div['surface']} row {div.get('row')}, xorBits "
+            f"{div.get('xorBits')}, backend {bundle['backend']['platform']}),"
+            f" supervisor {a.supervisor.state} ({card})")
+        if not (st.audit_divergence and div["surface"] == "plane"
+                and bundle["journalCursor"][0] == LOOP_STEPS + 1):
+            raise AssertionError("the audit missed the flipped bit")
+        return {"loop_launches": launches, "replay_launches": replay_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def journal_cpu_card_phase(card):
+    """Phase 11: [loop-cpu-card]'s world and script, journaled: recorded on
+    the card and replayed on the CPU, then recorded on the CPU and replayed
+    on the card; both replays without drift, each side's backend named."""
+    from kubernetes_autoscaler_tpu_torch.replay.harness import replay_journal
+
+    pods = LOOP_PODS * LOOP_SMALL_NODES // LOOP_NODES
+    platform = {"cpu": ("cpu", "plain"), DEVICE: ("gpu", "kernel")}
+    tmp = repo_dir("journal_")
+    try:
+        for rec_dev, rep_dev in ((DEVICE, "cpu"), ("cpu", DEVICE)):
+            jdir = os.path.join(tmp, f"{rec_dev}-{rep_dev}")
+            fake = loop_world(LOOP_SMALL_NODES, pods)
+            a = loop_autoscaler(fake, rec_dev, journal_dir=jdir,
+                                journal_max_mb=JOURNAL_MAX_MB)
+            script = LoopScript(fake, LOOP_SMALL_NODES, pods)
+            for loop in range(LOOP_STEPS):
+                script.before(loop)
+                a.run_once(now=1000.0 + 10.0 * loop)
+                script.after(loop)
+            t0 = time.perf_counter()
+            rep = replay_journal(jdir, device=rep_dev)
+            replay_s = time.perf_counter() - t0
+            sides = {k: (b["platform"], b["pack"])
+                     for k, b in rep["backend"].items()}
+            log(f"[journal-cpu-card] recorded on {rec_dev}, replayed on "
+                f"{rep_dev}: {rep['loops']} loops in {replay_s} s, zeroDrift "
+                f"{rep['zeroDrift']}, backend {json.dumps(sides)} ({card})")
+            if not rep["zeroDrift"]:
+                raise AssertionError(f"[journal-cpu-card] {rec_dev} to "
+                                     f"{rep_dev} drifted: loops "
+                                     f"{rep['driftLoops']}")
+            if sides != {"recorded": platform[rec_dev],
+                         "replayed": platform[rep_dev]}:
+                raise AssertionError(f"[journal-cpu-card] backend blocks "
+                                     f"{sides}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# run as `python -m` runs a module (runpy, as `__main__`), printing K1's
+# launch count at exit: the entry's loops run in this process only
+ENTRY_SHIM = (
+    "import runpy, sys\n"
+    "try:\n"
+    "    runpy.run_module('kubernetes_autoscaler_tpu_torch', "
+    "run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    k1 = sys.modules.get('kubernetes_autoscaler_tpu_torch.ops.kernels."
+    "pack_kernel')\n"
+    "    print('K1 launches', k1.pack_groups_batched.launches if k1 else 0,"
+    " file=sys.stderr, flush=True)\n")
+
+
+def scenario_doc(fake) -> dict:
+    """A FakeCluster as the process entry's scenario JSON (__main__.py):
+    the node groups, the nodes, every pod, bound ones with `node_name`."""
+    groups = []
+    for g in fake.provider.node_groups():
+        t = g.template_node_info()
+        groups.append({"id": g.id(), "min": g.min_size(),
+                       "max": g.max_size(),
+                       "template": {"name": t.name, **node_spec(t)}})
+    nodes = [{"group": fake.provider.node_group_for_node(nd).id(),
+              "name": nd.name, **node_spec(nd)} for nd in fake.list_nodes()]
+    pods = [{"name": p.name, "cpu_milli": round(p.requests["cpu"] * 1000),
+             "mem_mib": int(p.requests["memory"]) // 2 ** 20,
+             "owner_name": p.owner.name, "node_name": p.node_name}
+            for p in fake.list_pods()]
+    return {"node_groups": groups, "nodes": nodes, "pods": pods}
+
+
+def node_spec(nd) -> dict:
+    return {"cpu_milli": round(nd.allocatable["cpu"] * 1000),
+            "mem_mib": int(nd.allocatable["memory"]) // 2 ** 20,
+            "pods": int(nd.allocatable["pods"])}
+
+
+def entry_phase(card):
+    """Phase 12: the command lines on the card. [loop]'s world (plus one pod
+    no node or template holds, so that `why` has a refused pod to explain)
+    as a scenario; `python -m kubernetes_autoscaler_tpu_torch` journals
+    ENTRY_ITERATIONS loops with the shadow audit on while /healthz and
+    /metrics are scraped; then the replay and lineage command lines."""
+    from kubernetes_autoscaler_tpu_torch.utils.testing import build_test_pod
+
+    tmp = repo_dir("journal_")
+    proc = None
+    try:
+        fake = loop_world(LOOP_NODES, LOOP_PODS)
+        fake.add_pod(build_test_pod("unfit-0", cpu_milli=32000, mem_mib=512,
+                                    owner_name="unfit"))
+        scenario = os.path.join(tmp, "scenario.json")
+        with open(scenario, "w") as f:
+            json.dump(scenario_doc(fake), f)
+        jdir = os.path.join(tmp, "journal")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-c", ENTRY_SHIM, "--scenario", scenario,
+               "--max-iterations", str(ENTRY_ITERATIONS),
+               "--scan-interval", "1s", "--journal-dir", jdir,
+               "--journal-max-mb", str(JOURNAL_MAX_MB), "--shadow-audit=true",
+               "--shadow-audit-dir", os.path.join(tmp, "audit"),
+               "--address", f"127.0.0.1:{port}",
+               "--leader-elect-lease-file", os.path.join(tmp, "lease"),
+               *LOOP_FLAGS]
+        # its output goes to files: a pipe nobody reads while the loop runs
+        # could fill and stall it
+        out_path = os.path.join(tmp, "entry.out")
+        t0 = time.perf_counter()
+        with open(out_path, "w") as out_f:
+            proc = subprocess.Popen(cmd, stdout=out_f,
+                                    stderr=subprocess.STDOUT, text=True)
+        # /healthz once it answers; /metrics once a loop has run (before
+        # that the registry holds no loop's families)
+        scraped = {}
+        deadline = time.perf_counter() + 900
+        while proc.poll() is None and time.perf_counter() < deadline:
+            if b"function_duration_seconds" in scraped.get("/metrics",
+                                                           (0, b""))[1]:
+                break
+            for path in ("/healthz", "/metrics"):
+                if path == "/healthz" and path in scraped:
+                    continue
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+                        scraped[path] = (r.status, r.read())
+                except urllib.error.HTTPError as e:
+                    scraped[path] = (e.code, e.read())
+                except OSError:
+                    break
+            time.sleep(0.2)
+        proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        entry_s = time.perf_counter() - t0
+        with open(out_path) as f:
+            output = f.read()
+        k1 = [ln for ln in output.splitlines()
+              if ln.startswith("K1 launches")]
+        log(f"[entry] python -m kubernetes_autoscaler_tpu_torch --scenario "
+            f"({LOOP_NODES} nodes, {LOOP_PODS + 2 * LOOP_NODES + 1} pods) "
+            f"--max-iterations {ENTRY_ITERATIONS} --journal-dir "
+            f"--shadow-audit=true: exit {proc.returncode} in {entry_s} s, "
+            f"{k1[-1] if k1 else 'K1 launches not reported'}; /healthz "
+            f"{scraped.get('/healthz', ('not scraped',))[0]}, /metrics "
+            f"{scraped.get('/metrics', ('not scraped',))[0]} "
+            f"({len(scraped.get('/metrics', (0, b''))[1])} B) ({card})")
+        if proc.returncode != 0:
+            raise AssertionError(f"[entry] exit {proc.returncode}: "
+                                 f"{output[-4000:]}")
+        if scraped.get("/healthz", (0,))[0] != 200 or \
+                scraped.get("/metrics", (0,))[0] != 200 or \
+                b"function_duration_seconds" not in scraped["/metrics"][1]:
+            raise AssertionError(f"[entry] scrapes {scraped.keys()}")
+
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "kubernetes_autoscaler_tpu_torch.replay", jdir],
+                           capture_output=True, text=True, timeout=900)
+        replay_s = time.perf_counter() - t0
+        report = json.loads(r.stdout) if r.returncode in (0, 2) else {}
+        log(f"[entry] python -m kubernetes_autoscaler_tpu_torch.replay: exit "
+            f"{r.returncode} in {replay_s} s, {report.get('loops')} loops, "
+            f"zeroDrift {report.get('zeroDrift')}, audit divergences "
+            f"{report.get('audit', {}).get('divergences')} ({card})")
+        if r.returncode != 0:
+            raise AssertionError(f"[entry] replay exit {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "kubernetes_autoscaler_tpu_torch.lineage", jdir,
+                            "--json", "why", "unfit-0"],
+                           capture_output=True, text=True, timeout=300)
+        why = json.loads(r.stdout) if r.returncode in (0, 1) else {}
+        log(f"[entry] python -m kubernetes_autoscaler_tpu_torch.lineage why "
+            f"unfit-0: exit {r.returncode} in {time.perf_counter() - t0} s, "
+            f"{len(why.get('entries') or [])} entries, reason "
+            f"{(why.get('entries') or [{}])[-1].get('reason')} ({card})")
+        if r.returncode != 0:
+            raise AssertionError(f"[entry] lineage exit {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+        if not k1 or int(k1[-1].split()[-1]) == 0:
+            raise AssertionError("the entry's loops launched K1 no time")
+        return int(k1[-1].split()[-1])
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- constrained
@@ -1431,7 +1814,7 @@ def wave_counts():
 
 
 def constrained_phase(dims, card, profile_dir=None):
-    """Phase 10: `run_once_fused` with the constrained tier on the bench
+    """Phase 13: `run_once_fused` with the constrained tier on the bench
     world with constraints (bench_pod_factory): step and phase times, the
     waves and flag reads of each phase, one step under torch.profiler, peak
     memory, invariants and the decision; the wave-check interval swept
@@ -1596,7 +1979,7 @@ def constrained_phase(dims, card, profile_dir=None):
 
 
 def constrained_cpu_card_phase(dims, card):
-    """Phase 11: the constrained steps on the CPU and on the card on the
+    """Phase 14: the constrained steps on the CPU and on the card on the
     every-kind world (kinds_objects) at 512 nodes."""
     from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
 
@@ -1675,7 +2058,7 @@ def constrained_loop_world(n_nodes, n_pods,
 
 
 def loop_constrained_phase(card):
-    """Phase 12: the control loop on the constrained bench world at full
+    """Phase 15: the control loop on the constrained bench world at full
     width with [loop]'s churn: one cold loop, CON_LOOP_STEPS timed."""
     from kubernetes_autoscaler_tpu_torch.core.scaledown import native_confirm
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
@@ -1754,7 +2137,7 @@ def loop_constrained_phase(card):
 
 
 def loop_constrained_cpu_card_phase(card):
-    """Phase 13: the constrained loop world at 512 nodes with unneeded time
+    """Phase 16: the constrained loop world at 512 nodes with unneeded time
     0 (the planner confirms and deletes nodes under constraints), 8 loops on
     the CPU and 8 on the card: every loop's decision-surface digests, fused
     mode, speculation outcome and round trips equal; the native
@@ -1813,7 +2196,6 @@ def profile_loop(card, a, script, first, out_dir):
     the churn script under cProfile, then one more under torch.profiler."""
     import cProfile
     import io
-    import os
     import pstats
     from collections import defaultdict
 
@@ -1934,12 +2316,17 @@ def main() -> int:
     # 7. CPU against the card at 512 nodes
     cpu_card_phase(dims)
     # 8. the control loop at the bench_runonce_e2e world
-    loop_launches, loop_per_loop, err = loop_phase(card, dims, k1, k1_plain,
-                                                   args.profile)
+    loop_launches, loop_per_loop, err, loop_ref = loop_phase(
+        card, dims, k1, k1_plain, args.profile)
     k1_err = max(k1_err, err)
     # 9. the control loop, CPU against the card at 512 nodes
     loop_cpu_card_phase(card)
-    # 10-13. the constrained tier: the fused step at full width, the steps
+    # 10-12. the journal, the shadow audit and the replay at full width,
+    # the cross-device replays, the command lines
+    journal_launches = journal_phase(card, loop_ref)
+    journal_cpu_card_phase(card)
+    entry_launches = entry_phase(card)
+    # 13-16. the constrained tier: the fused step at full width, the steps
     # CPU against the card, the control loop at full width and CPU against
     # the card
     constrained_phase(dims, card, args.profile)
@@ -1947,7 +2334,7 @@ def main() -> int:
     loop_constrained_phase(card)
     loop_constrained_cpu_card_phase(card)
 
-    # 14. result: `ms` is the kernel as launched from Python (CUDA events
+    # 17. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{
@@ -1964,6 +2351,9 @@ def main() -> int:
                   "ms are per step",
         "loop_launches": loop_launches,
         "loop_launches_per_loop": loop_per_loop,
+        "journal_loop_launches": journal_launches["loop_launches"],
+        "replay_launches": journal_launches["replay_launches"],
+        "entry_launches": entry_launches,
     }, {
         "name": "pack_groups_wavefront",
         "route": "cuda",

@@ -142,6 +142,13 @@ class ScaleUpOrchestrator:
         self.event_sink = None
         self.last_noscaleup: dict[str, int] = {}
         self.last_noscaleup_groups: list[dict] = []
+        # shadow-audit gate (audit/shadow.py, wired by StaticAutoscaler):
+        # while a persistent audit divergence is unhealed, every scale-up
+        # option is derived from a verdict plane the audit proved corrupt —
+        # options are REFUSED with the AuditDivergence reason instead of
+        # actuated (the scale-down analog is the supervisor's safe-action
+        # gating). None = no auditor.
+        self.audit_gate = None
         self.node_group_list_processor = (
             node_group_list_processor or IdentityNodeGroupListProcessor()
         )
@@ -273,6 +280,16 @@ class ScaleUpOrchestrator:
         if pending_total == 0:
             return ScaleUpResult(scaled_up=False)
 
+        if self.audit_gate is not None and self.audit_gate():
+            # persistent shadow-audit divergence: refuse rather than scale
+            # on corrupt verdict bits. Every pending group gets the
+            # AuditDivergence verdict on all four reason surfaces (event /
+            # status / unschedulable_pods_count{reason} / snapshotz) — no
+            # device dispatch, the plane is exactly what is not trusted.
+            self._refuse_all_pending(enc, "AuditDivergence", now)
+            return ScaleUpResult(scaled_up=False,
+                                 pods_remaining=pending_total)
+
         if precomputed is not None:
             groups = precomputed.prep.groups
         else:
@@ -374,11 +391,17 @@ class ScaleUpOrchestrator:
         exists at all — the summary reason needs no device dispatch."""
         from kubernetes_autoscaler_tpu_torch.ops.predicates import NO_NODE_IN_GROUP
 
+        self._refuse_all_pending(enc, NO_NODE_IN_GROUP, now)
+
+    def _refuse_all_pending(self, enc: EncodedCluster, reason: str,
+                            now: float) -> None:
+        """One whole-loop refusal verdict (`reason`) for every valid
+        pending group, onto all the orchestrator-owned surfaces."""
         counts = to_host(enc.specs.count)
         valid = to_host(enc.specs.valid)
         for gi in np.nonzero(valid & (counts > 0))[0]:
             self._record_noscaleup(enc, int(gi), int(counts[gi]),
-                                   NO_NODE_IN_GROUP, {}, now)
+                                   reason, {}, now)
 
     def _explain_refused(self, enc: EncodedCluster, est, group_tensors,
                          now: float) -> None:
@@ -447,6 +470,12 @@ class ScaleUpOrchestrator:
                        f"bins) left them behind")
             elif reason == NO_NODE_IN_GROUP:
                 msg = f"{pods} pending pods; no candidate node group exists"
+            elif reason == "AuditDivergence":
+                msg = (f"{pods} pending pods; scale-up refused — the "
+                       f"shadow audit proved the device verdict plane "
+                       f"diverges from the host oracle and the divergence "
+                       f"survived a forced re-encode (docs/OBSERVABILITY"
+                       f".md \"Shadow audit\")")
             else:
                 msg = (f"{pods} pending pods; no node group can host them"
                        + (f" (refusing templates: {detail})" if detail

@@ -12,9 +12,9 @@ perfwatch triage bundles (perfwatch/triage.py) — plus the event ring
              to a record digest; LineageRing — the live in-process
              variant StaticAutoscaler feeds (served on /whyz,
              /snapshotz and the sidecar Explain RPC).
-
-The port carries index.py only (the live ring the control loop feeds);
-the query renderers and the CLI are not ported.
+  query.py   why / timeline / diff renderers (human text + JSON).
+  __main__   `python -m kubernetes_autoscaler_tpu_torch.lineage` CLI, with
+             --follow tailing a live journal dir.
 
 Everything here is a pure observer: host-side dict work, zero device
 dispatches, overhead metered like the journal's.

@@ -81,16 +81,23 @@ from kubernetes_autoscaler_tpu_torch.utils.canonical import (  # noqa: F401
 )
 
 
-def backend_identity(node_bucket: int | None = None,
+def backend_identity(device=None, node_bucket: int | None = None,
                      group_bucket: int | None = None) -> dict:
     """Backend + shape-class identity stamped into every record — the
-    cross-backend divergence oracle compares records ACROSS these."""
+    cross-backend divergence oracle compares records ACROSS these.
+    `device` is the one the loop runs on (None = CUDA, raising without a
+    card), not whichever the machine has: a CPU loop on a machine with a
+    card records "cpu" and the plain pack."""
     import torch
 
-    cuda = torch.cuda.is_available()
+    from kubernetes_autoscaler_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
     out = {"platform": "gpu" if cuda else "cpu",
-           "device": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "torch": torch.__version__}
+           "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+           "torch": torch.__version__,
+           "pack": "kernel" if cuda else "plain"}
     if node_bucket is not None:
         out["shape"] = {"nodeBucket": int(node_bucket),
                         "groupBucket": int(group_bucket or 0)}
@@ -363,7 +370,8 @@ class JournalWriter:
     committed on the loop)."""
 
     def __init__(self, dir: str, max_mb: float = 64.0, keep_files: int = 4,
-                 registry=None, options=None, meta: dict | None = None):
+                 registry=None, options=None, meta: dict | None = None,
+                 device=None):
         self.dir = dir
         self.max_bytes = max(int(max_mb * 1_000_000), 10_000)
         self.keep_files = max(int(keep_files), 1)
@@ -376,6 +384,7 @@ class JournalWriter:
         self._meta_extra = meta or {}
         self._node_bucket = getattr(options, "node_shape_bucket", None)
         self._group_bucket = getattr(options, "group_shape_bucket", None)
+        self._device = device
         self.loop = 0
         self.records = 0
         self.bytes = 0
@@ -453,7 +462,7 @@ class JournalWriter:
                 "v": JOURNAL_VERSION, "loop": self.loop, "kind": kind,
                 "parent": self._last_digest, "now": float(now),
                 "config": self.config_fp,
-                "backend": backend_identity(self._node_bucket,
+                "backend": backend_identity(self._device, self._node_bucket,
                                             self._group_bucket),
                 **body,
                 "worldDigest": wd,
@@ -583,7 +592,8 @@ class JournalWriter:
         meta = {
             "kind": "meta", "v": JOURNAL_VERSION,
             "config": self.config_fp,
-            "backend": backend_identity(self._node_bucket, self._group_bucket),
+            "backend": backend_identity(self._device, self._node_bucket,
+                                        self._group_bucket),
             "createdLoop": self.loop,
             **({"options": dataclasses.asdict(self._options)}
                if self._options is not None else {}),

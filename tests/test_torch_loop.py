@@ -230,8 +230,6 @@ def test_world_store_scatter_is_out_of_place():
 
 
 @pytest.mark.parametrize("option, value, item", [
-    ("shadow_audit", True, "ROADMAP A10"),
-    ("journal_dir", "journal-x", "ROADMAP A2"),
     ("async_node_group_creation", True, "ROADMAP A11"),
     ("grpc_expander_url", "localhost:1", "ROADMAP A11"),
 ])
