@@ -133,6 +133,10 @@ STEPS = 100                   # timed steps of the main path
 WAVE_STEPS = 50               # timed steps of each scale_up_sim variant
 PHASED_STEPS = 3              # timed steps of scale_down_sim / run_once_sim
 REPS = 20                     # timed runs per kernel measurement
+# K2 launches checked and timed besides the chosen one: (cluster size,
+# where each CTA keeps its lanes of the free plane: 1 device memory, 2 shared
+# memory)
+K2_FORCED = ((8, 1), (16, 1), (8, 2), (16, 2))
 # the control loop's world: bench.py bench_runonce_e2e at its defaults
 LOOP_NODES = 5000
 LOOP_PODS = 50000
@@ -489,103 +493,7 @@ def check_equal(name, got, want) -> int:
     return err
 
 
-# ---------------------------------------------------------------- K2 cases
-
-
-def wave_case(seed, g, n, r=8, style="mixed", max_count=3000,
-              limit_share=0.3, device=None):
-    """Seeded wavefront-pack inputs [free, mask, req, count, limit_one,
-    waves] on `device` (default DEVICE), with the plan built from the mask
-    in FFD order. Mask styles as the reference's tests/test_wavefront_pack.py
-    generator: "overlap" rows overlap everything, "disjoint" rows take one
-    of four node blocks, "sparse" rows are sparse random; "mixed" cycles
-    the three."""
-    from kubernetes_autoscaler_tpu_torch.ops.pack import (
-        build_wavefront_plan,
-        ffd_order,
-    )
-
-    rng = np.random.default_rng(seed)
-    free = rng.integers(0, 40, size=(n, r)).astype(np.int32)
-    req = rng.integers(0, 6, size=(g, r)).astype(np.int32)
-    req[0] = 0                                     # a zero-request group
-    count = rng.integers(0, max_count, size=(g,)).astype(np.int32)
-    mask = np.zeros((g, n), bool)
-    for gi in range(g):
-        kind = style if style != "mixed" else ("overlap", "disjoint",
-                                               "sparse")[gi % 3]
-        if kind == "overlap":
-            mask[gi] = rng.random(n) < 0.6
-        elif kind == "disjoint":
-            blk = gi % 4
-            mask[gi, blk * (n // 4):(blk + 1) * (n // 4)] = True
-        else:
-            mask[gi] = rng.random(n) < 0.2
-    limit_one = rng.random(g) < limit_share
-    order = ffd_order(torch.from_numpy(req), torch.ones((g,), dtype=torch.bool))
-    dev = device or DEVICE
-    waves = build_wavefront_plan(mask, order.numpy(), device=dev).waves
-    return [torch.from_numpy(a).to(dev)
-            for a in (free, mask, req, count, limit_one)] + [waves]
-
-
-def wave_cases(device=None):
-    from kubernetes_autoscaler_tpu_torch.ops.pack import (
-        build_wavefront_plan,
-        ffd_order,
-    )
-
-    device = device or DEVICE
-
-    def case(*a, **kw):
-        return wave_case(*a, device=device, **kw)
-
-    def replan(c, mask):
-        order = ffd_order(c[2].cpu(), torch.ones((c[2].shape[0],),
-                                                 dtype=torch.bool))
-        return build_wavefront_plan(mask.cpu().numpy(), order.numpy(),
-                                    device=device).waves
-
-    cases = [(f"fuzzed {style} masks G=64 N=5120", case(s, 64, 5120, style=style))
-             for s, style in enumerate(("mixed", "overlap", "disjoint"))]
-    one = case(3, 64, 4096, style="disjoint")
-    one[1].zero_()
-    for gi in range(64):                          # a perfect partition
-        one[1][gi, gi * 64:(gi + 1) * 64] = True
-    one[5] = replan(one, one[1])
-    cases.append(("W == 1: all 64 masks disjoint (more slots than warps)",
-                  one))
-    full = case(4, 24, 2048)
-    full[1].fill_(True)
-    full[5] = replan(full, full[1])
-    cases.append(("W == G: every mask overlaps every other", full))
-    sub = case(5, 48, 3000)
-    rng = np.random.default_rng(5)
-    keep = torch.from_numpy(rng.random(tuple(sub[1].shape)) < 0.7).to(device)
-    sub[1] = sub[1] & keep                        # plan built from the superset
-    cases.append(("runtime mask a strict subset of the plan mask", sub))
-    ovl = case(6, 40, 1500, style="overlap")
-    ovl[5] = torch.arange(40, dtype=torch.int32, device=device).reshape(5, 8)
-    cases.append(("plan with overlapping slots (segmented semantics)", ovl))
-    cases.append(("every group limit_one", case(7, 16, 700, limit_share=1.0)))
-    neg = case(14, 24, 2000, style="disjoint")
-    neg[3][::3] = -neg[3][::3] - 1                # the formula's result
-    cases.append(("negative counts (delta path)", neg))
-    z = case(8, 3, 200, style="overlap")
-    z[0].zero_()
-    z[2].zero_()
-    z[3] = torch.tensor([7, 0, 2 ** 30], dtype=torch.int32, device=device)
-    cases.append(("zero-request groups on empty nodes", z))
-    b31 = case(9, 32, 300)
-    b31[1].zero_()
-    b31[1][31, :] = True
-    b31[5] = replan(b31, b31[1])
-    cases.append(("only group 31 (the sign bit) feasible", b31))
-    cases.append(("G=33 (two mask words)", case(10, 33, 512)))
-    cases.append(("N=1031, not a multiple of a warp", case(11, 12, 1031)))
-    cases.append(("N=40", case(12, 5, 40)))
-    cases.append(("N=8192: free plane in device memory", case(13, 40, 8192)))
-    return cases
+# ---------------------------------------------------------------- K2 checks
 
 
 def wave_bound(launch_args, mask):
@@ -609,15 +517,101 @@ def wave_bound(launch_args, mask):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k2_forced(n, r, g):
+    """The K2_FORCED launches that fit N lanes of R resources: a plane in
+    shared memory needs 8R bytes a lane (the plane and the wave's delta)
+    for ceil(N / C) lanes a CTA, beside the metadata (here, at most 200,000
+    of the H100's 232,448 bytes)."""
+    return [(c, p) for c, p in K2_FORCED
+            if p == 1 or -(-n // c) * (8 * r + g // 4) <= 200_000]
+
+
 def check_wave(name, args, kernel, plain):
+    """K2 through its wrapper, and launched as each of K2_FORCED that fits,
+    against the plain version on `args`; returns the max abs
+    difference."""
+    from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import wavefront_kernel
+
     got = kernel(*args)
     want = plain(*args)
+    bits = (args[0], pack_group_bits(args[1]), *args[2:4],
+            args[4].to(torch.int32), args[5])
+    n, r = args[0].shape
+    launches = k2_forced(n, r, args[2].shape[0])
+    forced = [wavefront_kernel.launch(*bits, cluster=c, placement=p)
+              for c, p in launches]
     torch.cuda.synchronize()
     err = check_equal(name, got, want)
+    for (c, p), f in zip(launches, forced):
+        err = max(err, check_equal(f"{name} (cluster {c}, placement {p})",
+                                   f, want))
     log(f"[kernels] pack_groups_wavefront == plain: {name} "
-        f"(G={args[2].shape[0]} N={args[0].shape[0]} "
-        f"waves {tuple(args[5].shape)})")
+        f"(G={args[2].shape[0]} N={n} waves {tuple(args[5].shape)}; also "
+        f"as (cluster, placement) {launches})")
     return err
+
+
+def live_waves(a) -> int:
+    """Waves of `a` (free, mask, req, count, limit_one, waves) with a live
+    slot: a group whose count is negative, or positive with a mask bit."""
+    mask, count, waves = a[1], a[3], a[5]
+    g = waves.clamp(min=0).long()
+    cnt = count[g]
+    live = (waves >= 0) & (cnt != 0) & ((cnt < 0) | mask.any(dim=1)[g])
+    return int(live.any(dim=1).sum())
+
+
+def k2_times(a, kernel, plain):
+    """K2's times on the wrapper arguments `a` (free, mask, req, count,
+    limit_one, waves), as k1_times takes K1's: the kernel's device time,
+    as launched from Python, with every mask bit clear (every slot with a
+    positive count dead: the dead-slot floor) and with the free plane zero
+    (every slot live, scanned, placing nothing: the live-slot depth); the
+    device time of each K2_FORCED launch; the wrapper's and the
+    plain version's time; the bound; the launch configuration and the
+    waves with a live slot."""
+    from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import wavefront_kernel
+
+    bits = (a[0], pack_group_bits(a[1]), *a[2:4], a[4].to(torch.int32), a[5])
+    t = {"kernel": cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS,
+                           hold=True),
+         "launch": cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS)}
+    no_fit = (bits[0], torch.zeros_like(bits[1]), *bits[2:])
+    t["dead"] = cuda_ms(lambda: wavefront_kernel.launch(*no_fit), REPS,
+                        hold=True)
+    no_room = (torch.zeros_like(bits[0]), *bits[1:])
+    t["live"] = cuda_ms(lambda: wavefront_kernel.launch(*no_room), REPS,
+                        hold=True)
+    t["forced"] = {(c, p): cuda_ms(lambda c=c, p=p: wavefront_kernel.launch(
+        *bits, cluster=c, placement=p), REPS, hold=True)
+        for c, p in k2_forced(*a[0].shape, a[2].shape[0])}
+    t["wrapper"] = cuda_ms(lambda: kernel(*a), REPS)
+    t["plain"] = cuda_ms(lambda: plain(*a), REPS)
+    t["bound"], t["bound_by"] = wave_bound(bits, a[1])
+    n, r = a[0].shape
+    t["config"] = wavefront_kernel.config(a[2].shape[0], n, r, a[5].shape[0])
+    t["waves"] = live_waves(a)
+    return t
+
+
+def k2_line(t) -> str:
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import wavefront_kernel
+
+    per_wave = t["kernel"] / max(t["waves"], 1)
+    forced = ", ".join(
+        f"C={c} {wavefront_kernel.PLACEMENTS[p]} {ms} ms"
+        for (c, p), ms in t["forced"].items())
+    return (f"cluster of {t['config']['cluster']} CTAs x "
+            f"{t['config']['threads']} threads ({t['config']['smem']} B "
+            f"shared memory each), free plane in {t['config']['plane']}: kernel {t['kernel']} ms (device time; "
+            f"{t['launch']} ms as launched from Python), {per_wave} ms per "
+            f"wave over {t['waves']} live waves, every mask bit clear "
+            f"(dead-slot floor) {t['dead']} ms, free plane zero (live-slot "
+            f"depth) {t['live']} ms, forced: {forced}; wrapper with "
+            f"checks and mask packing {t['wrapper']} ms, plain {t['plain']} "
+            f"ms, bound {t['bound']} ms ({t['bound_by']})")
 
 
 # ---------------------------------------------------------------- profile
@@ -809,7 +803,6 @@ def wavefront_phase(dims, main_world):
     the pool-partitioned world. Returns (K2 launches, K2 entry fields, max
     abs err)."""
     from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
-    from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
         pack_kernel,
         wavefront_kernel,
@@ -928,24 +921,10 @@ def wavefront_phase(dims, main_world):
     a = [free, mask, req, count, limit_one, plan.waves]
     max_err = check_wave("partitioned-world filter inputs", a,
                          k2, wavefront_kernel.pack_groups_wavefront_plain)
-    bits = (free, pack_group_bits(mask), req, count,
-            limit_one.to(torch.int32), plan.waves)
-    k_ms = cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS, hold=True)
-    launch_ms = cuda_ms(lambda: wavefront_kernel.launch(*bits), REPS)
-    no_fit = (free, torch.zeros_like(bits[1]), *bits[2:])
-    depth_ms = cuda_ms(lambda: wavefront_kernel.launch(*no_fit), REPS,
-                       hold=True)
-    w_ms = cuda_ms(lambda: k2(*a), REPS)
-    p_ms = cuda_ms(lambda: wavefront_kernel.pack_groups_wavefront_plain(*a),
-                   REPS)
-    bnd, by = wave_bound(bits, mask)
+    t2 = k2_times(a, k2, wavefront_kernel.pack_groups_wavefront_plain)
     n, r = free.shape
     log(f"[kernels] pack_groups_wavefront filter G={req.shape[0]} N={n} R={r} "
-        f"waves {tuple(plan.waves.shape)} (W={plan.n_waves}): kernel {k_ms} "
-        f"ms (device time; {launch_ms} ms as launched from Python), kernel "
-        f"with no lane fitting (serial depth) {depth_ms} ms, "
-        f"wrapper with checks and mask packing {w_ms} ms, plain {p_ms} ms, "
-        f"bound {bnd} ms ({by})")
+        f"waves {tuple(plan.waves.shape)} (W={plan.n_waves}): {k2_line(t2)}")
     k1_args = [free[None].contiguous(), mask[None].contiguous(), req, count,
                order, limit_one]
     max_err = max(max_err, check_pack("partitioned-world filter inputs",
@@ -954,9 +933,12 @@ def wavefront_phase(dims, main_world):
     t = k1_times(k1_args, k1, pack_kernel.pack_groups_batched_plain)
     log(f"[kernels] pack_groups_batched on the same inputs (B=1, "
         f"G={req.shape[0]} serial groups, {t['live_groups']} live): "
-        f"{k1_line(t)}; K2 / K1 kernel time {k_ms / t['kernel']}")
-    entry = {"ms": launch_ms, "device_ms": k_ms, "plain_ms": p_ms,
-             "bound_ms": bnd, "bound_by": by}
+        f"{k1_line(t)}; K2 / K1 kernel time {t2['kernel'] / t['kernel']}")
+    entry = {"ms": t2["launch"], "device_ms": t2["kernel"],
+             "plain_ms": t2["plain"], "bound_ms": t2["bound"],
+             "bound_by": t2["bound_by"], "cluster": t2["config"]["cluster"],
+             "ctas": t2["config"]["cluster"], "free_plane": t2["config"]["plane"],
+             "k1_b1_device_ms": t["kernel"]}
     return counts[1], entry, max_err
 
 
@@ -2265,6 +2247,7 @@ def main() -> int:
         build,
         pack_cases,
         pack_kernel,
+        wave_cases,
         wavefront_kernel,
     )
 
@@ -2301,8 +2284,9 @@ def main() -> int:
     for name, case in pack_cases.CASES.items():
         k1_err = max(k1_err, check_pack(
             name, [a.to(DEVICE) for a in case()], k1, k1_plain))
-    for name, case in wave_cases():
-        k2_err = max(k2_err, check_wave(name, case, k2, k2_plain))
+    for name, case in wave_cases.CASES.items():
+        k2_err = max(k2_err, check_wave(
+            name, [a.to(DEVICE) for a in case()], k2, k2_plain))
 
     dims = Dims()
     # 4. the fused main path at full size

@@ -53,10 +53,11 @@
 //   slot; one barrier; then every warp scans the <= 32 slots itself. The row
 //   total saturated at the count is scheduled[b,g]. A row longer than one
 //   chunk takes one such scan per chunk, the carry block-uniform.
-// - No division. max(free,0) / d for d >= 2 is __umulhi(x, m) >> s with
-//   s = ceil(log2 d) - 1 and m = ceil(2^(32+s) / d), exact for every x <
-//   2^31 (the error x*(m*d - 2^(32+s)) / (d*2^(32+s)) stays below 1/d);
-//   d == 1 is x itself. (m, s) are computed once per (group, resource).
+// - No division: max(free,0) / d is a multiply-high and a shift with the
+//   codes (m, s) of pack_row.cuh's `divisor`, computed once per (group,
+//   resource), as K2 computes them. The quotient is written out in the
+//   loop: pack_row.cuh's `quotient` there measured 0.6 % slower at the
+//   option shape (tools/torch_kernel_ab.py).
 // - One block per SM (__launch_bounds__(1024, 1)), so ptxas may give each
 //   thread 64 registers; K and where the free plane and the mask live are
 //   template parameters, so the fits stay in registers and shared-memory
@@ -73,20 +74,11 @@
 
 #include <mutex>
 
+#include "pack_row.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kMaxThreads = 1024;
-constexpr int kMinLanes = 2;  // node lanes per thread and chunk: 512 threads cover 1,024
-constexpr int kMaxLanes = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kNoLimit = -2;  // shift code of a resource the group does not request
-constexpr int kIdentity = -1;  // shift code of a request of 1
-
-// a * b in int32 with the wrap-around of the plain version's int32 tensors
-__device__ __forceinline__ int mul_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
+using namespace ka;
 
 // row stride of the [R][N] free plane in shared memory: N rounded up to
 // 32/R (mod 32) when R divides 32, so that the R values of the lanes a warp
@@ -159,14 +151,9 @@ pack_batched_kernel(const int* __restrict__ free_in, const int* __restrict__ mas
   for (int i = tid; i < G * R; i += nthreads) {
     const int d = req[i];
     req_s[i] = d;
-    unsigned m = 0;
-    int s = kNoLimit;
-    if (d == 1) {
-      s = kIdentity;
-    } else if (d > 1) {
-      s = 31 - __clz(d - 1);  // ceil(log2 d) - 1
-      m = static_cast<unsigned>(((1ull << (32 + s)) + d - 1) / d);
-    }
+    unsigned m;
+    int s;
+    divisor(d, m, s);
     mul_s[i] = m;
     shift_s[i] = s;
   }
@@ -411,14 +398,10 @@ extern "C" int ka_pack_groups_batched(const void* free_in, const void* mask_bits
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
 
-  // K lanes per thread (K = ceil(N / 1024), kMinLanes to kMaxLanes), and as
-  // few threads as cover the row with K lanes each; a chunk is threads * K
-  // lanes
-  int K = (N + kMaxThreads - 1) / kMaxThreads;
-  K = K < kMinLanes ? kMinLanes : (K > kMaxLanes ? kMaxLanes : K);
-  int threads = (N + K - 1) / K;
-  threads = ((threads + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
+  // K lanes per thread and as few threads as cover the row with K lanes
+  // each; a chunk is threads * K lanes
+  int K, threads;
+  row_shape(N, K, threads);
 
   size_t smem;
   void* kernel = nullptr;

@@ -3,8 +3,8 @@
 Each `csrc/*.cu` file has a plain C interface and is compiled on first use
 by `nvcc` for Hopper (`sm_90a`) into `_build/` beside the sources (listed in
 .gitignore), then loaded with ctypes. The library name carries a hash of the
-source and flags, so an edited source rebuilds and an unchanged one loads
-the existing library. `build` starts one `nvcc` per missing source, all at
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited source
+or header rebuilds and an unchanged one loads the existing library. `build` starts one `nvcc` per missing source, all at
 once, and waits for all of them. `build_host` does the same for the host
 C++ sources in `csrc/host/` with the host compiler (`$CXX`, else g++).
 Nothing here runs at import time.
@@ -40,10 +40,15 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def library_path(source: str) -> Path:
-    """Where `source` (a file name in csrc/) builds to."""
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(source: str, csrc: Path = CSRC_DIR) -> Path:
+    """Where `source` (a file name in `csrc`) builds to. The name hashes the
+    source, every header beside it (`*.cuh`, which any source may include)
+    and the flags, so an edited header rebuilds every kernel."""
+    src = csrc / source
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

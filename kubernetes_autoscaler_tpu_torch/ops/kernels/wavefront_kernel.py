@@ -3,9 +3,7 @@ plain PyTorch version.
 
 Replaces the reference package's `ops/pallas/pack_kernel.py`
 (`pack_groups_wavefront_pallas` → `_wavefront_call`, whose body is the
-Pallas `_wavefront_kernel`). The kernel itself is `csrc/wavefront.cu`; its
-header says what bounds it and how its design (a team of warps per
-live slot of a wave) answers that.
+Pallas `_wavefront_kernel`). The kernel itself is `csrc/wavefront.cu`.
 
 The function, for each wave w of `waves` (i32[W, S], -1 = empty slot) and
 each slot with group g = waves[w, s] ≥ 0: the fit of every node lane is
@@ -17,10 +15,23 @@ group occupies at most one slot of the whole plan (checked). For a plan
 built from a superset of the mask the waves' masks are disjoint and the
 result equals the serial pack.
 
+What bounds the kernel is serial depth, W waves each a prefix sum over the
+node lanes, not bytes. It launches one thread-block cluster (C = 16 CTAs
+where the card can schedule that many at the launch's size, else 8;
+`config` says which). CTA c owns a contiguous range of node lanes and keeps
+them, and their working free capacity, in its shared memory; in each wave
+every CTA runs every live slot over its own lanes (the division-free fit
+and saturating scan of K1, `csrc/pack_row.cuh`), the CTAs exchange each
+slot's per-CTA total through distributed shared memory across one cluster
+barrier, then place and apply the wave's summed update locally. A range
+too large for shared memory keeps its plane in `free_after`. The wrapper
+allocates nothing but the outputs.
+
 The device of the tensors decides: CPU tensors go through
 `pack_groups_wavefront_plain`, CUDA tensors through the kernel, and
-anything the kernel does not take raises. There is no fallback from the
-kernel to the plain version.
+anything the kernel does not take raises, as does a launch the card cannot
+schedule (its CUDA error). There is no fallback from the kernel to the
+plain version.
 """
 
 from __future__ import annotations
@@ -103,11 +114,35 @@ def _entry():
     once per process."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels.build import load
 
-    fn = load(SOURCE).ka_pack_groups_wavefront
+    lib = load(SOURCE)
+    fn = lib.ka_pack_groups_wavefront
     # every pointer and the stream as c_void_p: ctypes would cut them to int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    cfg = lib.ka_wavefront_config
+    cfg.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    cfg.restype = ctypes.c_int
+    return fn, cfg
+
+
+PLACEMENTS = {1: "device memory", 2: "shared memory"}
+
+
+def config(g: int, n: int, r: int, w: int, cluster: int = 0,
+           placement: int = 0, device=None) -> dict:
+    """What a launch at these shapes uses on `device` (default: the current
+    CUDA device): {"cluster": C (the CTAs launched), "threads": threads a
+    CTA, "smem": dynamic shared-memory bytes, "plane": where each CTA keeps
+    its lanes of the working free plane (a PLACEMENTS name)}. `cluster` and `placement` 0 let
+    the launcher choose, as the wrapper does."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        rc = _entry()[1](g, n, r, w, cluster, placement, out)
+    if rc != 0:
+        raise RuntimeError(f"wavefront kernel configuration failed: CUDA error {rc}")
+    return {"cluster": out[0], "threads": out[1], "smem": out[2],
+            "plane": PLACEMENTS[2 if out[3] else 1]}
 
 
 def pack_groups_wavefront(
@@ -146,10 +181,15 @@ def pack_groups_wavefront(
                       limit_one.to(torch.int32), waves)
 
 
-def launch(free, mask_bits, req, count, limit_one, waves) -> PackResult:
+def launch(free, mask_bits, req, count, limit_one, waves, cluster: int = 0,
+           placement: int = 0) -> PackResult:
     """One launch of the kernel on checked CUDA tensors, with the mask
     already bit-packed (i32[ceil(G/32), N]) and limit_one as i32[G].
-    Counted in `pack_groups_wavefront.launches`."""
+    `cluster` 0 lets the launcher choose the cluster size, 1 to 16 forces
+    it; `placement` 0 lets it choose where each CTA keeps its lanes of the
+    working free plane, 1 forces device memory and 2 shared memory (forced
+    only to measure and test each variant). Counted in
+    `pack_groups_wavefront.launches`."""
     n, r = free.shape
     g = req.shape[0]
     w, s = waves.shape
@@ -157,12 +197,11 @@ def launch(free, mask_bits, req, count, limit_one, waves) -> PackResult:
     placed = torch.empty((g, n), dtype=torch.int32, device=dev)
     free_after = torch.empty_like(free)
     scheduled = torch.empty((g,), dtype=torch.int32, device=dev)
-    delta = torch.empty((r, n), dtype=torch.int32, device=dev)  # zeroed inside
-    rc = _entry()(
+    rc = _entry()[0](
         free.data_ptr(), mask_bits.data_ptr(), req.data_ptr(),
         count.data_ptr(), limit_one.data_ptr(), waves.data_ptr(),
         placed.data_ptr(), free_after.data_ptr(), scheduled.data_ptr(),
-        delta.data_ptr(), g, n, r, w, s,
+        g, n, r, w, s, cluster, placement,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {rc}")

@@ -16,6 +16,7 @@ from kubernetes_autoscaler_tpu_torch.ops import pack
 from kubernetes_autoscaler_tpu_torch.ops.kernels import (
     pack_cases,
     pack_kernel,
+    wave_cases,
     wavefront_kernel,
 )
 
@@ -68,38 +69,14 @@ def test_pack_kernel_rejects_what_it_does_not_take(cuda):
                                         limit_one)
 
 
-def _wave_instance(seed, g, n, r=8, style="mixed", max_count=3000):
-    """(free, mask, req, count, limit_one, waves) with the plan built from
-    the mask, in the three mask styles of tests/test_wavefront_pack.py."""
-    rng = np.random.default_rng(seed)
-    free = rng.integers(0, 40, size=(n, r)).astype(np.int32)
-    req = rng.integers(0, 6, size=(g, r)).astype(np.int32)
-    req[0] = 0                                     # a zero-request group
-    count = rng.integers(0, max_count, size=(g,)).astype(np.int32)
-    mask = np.zeros((g, n), bool)
-    for gi in range(g):
-        if style == "overlap" or (style == "mixed" and gi % 3 == 0):
-            mask[gi] = rng.random(n) < 0.6
-        elif style == "disjoint" or (style == "mixed" and gi % 3 == 1):
-            blk = gi % 4
-            mask[gi, blk * (n // 4):(blk + 1) * (n // 4)] = True
-        else:
-            mask[gi] = rng.random(n) < 0.2
-    limit_one = rng.random(g) < 0.3
-    order = pack.ffd_order(torch.from_numpy(req), torch.ones((g,), dtype=torch.bool))
-    waves = pack.build_wavefront_plan(mask, order.numpy(), device="cpu").waves
-    return (torch.from_numpy(free), torch.from_numpy(mask), torch.from_numpy(req),
-            torch.from_numpy(count), torch.from_numpy(limit_one), waves)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,n,style", [(5, 40, "mixed"), (33, 1031, "mixed"),
                                        (24, 2000, "negative"),
                                        (64, 5120, "disjoint"), (64, 5120, "overlap"),
                                        (40, 8192, "mixed")])
 def test_wavefront_kernel_matches_plain(cuda, g, n, style):
-    args = _wave_instance(g * 1000 + n, g, n,
-                          style="disjoint" if style == "negative" else style)
+    args = wave_cases.wave_case(g * 1000 + n, g, n,
+                                style="disjoint" if style == "negative" else style)
     if style == "negative":                        # the formula's result
         args[3][::3] = -args[3][::3] - 1
     want = wavefront_kernel.pack_groups_wavefront_plain(*args)
@@ -113,7 +90,7 @@ def test_wavefront_kernel_matches_plain(cuda, g, n, style):
 
 @pytest.mark.cuda
 def test_wavefront_kernel_one_wave_with_more_slots_than_warps(cuda):
-    free, mask, req, count, limit_one, _ = _wave_instance(7, 64, 4096)
+    free, mask, req, count, limit_one, _ = wave_cases.wave_case(7, 64, 4096)
     mask.zero_()
     for gi in range(64):                           # a perfect partition
         mask[gi, gi * 64:(gi + 1) * 64] = True
@@ -130,7 +107,7 @@ def test_wavefront_kernel_one_wave_with_more_slots_than_warps(cuda):
 @pytest.mark.cuda
 def test_wavefront_kernel_rejects_what_it_does_not_take(cuda):
     free, mask, req, count, limit_one, waves = [
-        a.to(cuda) for a in _wave_instance(0, 6, 64)]
+        a.to(cuda) for a in wave_cases.wave_case(0, 6, 64)]
     bad = waves.clone()
     bad[0, 0] = 6                                  # G = 6: out of range
     with pytest.raises(ValueError, match="group ids"):
@@ -149,3 +126,66 @@ def test_wavefront_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="group ids"):
         wavefront_kernel.pack_groups_wavefront(free, mask, req, count,
                                                limit_one, checked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(wave_cases.CASES))
+def test_wavefront_kernel_cases(cuda, name):
+    args = wave_cases.CASES[name]()
+    want = wavefront_kernel.pack_groups_wavefront_plain(*args)
+    got = wavefront_kernel.pack_groups_wavefront(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    for field in ("placed", "scheduled", "free_after"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 8, 16])
+def test_wavefront_kernel_at_every_cluster_size(cuda, cluster, placement):
+    from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
+
+    for name in ("partitioned plan: wave 0 of 5 live and 39 dead slots, G=64 N=5120",
+                 "W == 1: 20 disjoint slots", "negative counts",
+                 "N=40: fewer lanes than CTAs have warps, CTAs with no lane"):
+        args = wave_cases.CASES[name]()
+        n, r = args[0].shape
+        if placement == 2 and -(-n // cluster) * (8 * r + 16) > 200_000:
+            continue                      # the plane would not fit shared memory
+        want = wavefront_kernel.pack_groups_wavefront_plain(*args)
+        free, mask, req, count, limit_one, waves = [a.to(cuda) for a in args]
+        got = wavefront_kernel.launch(free, pack_group_bits(mask), req, count,
+                                      limit_one.to(torch.int32), waves,
+                                      cluster=cluster, placement=placement)
+        torch.cuda.synchronize()
+        for field in ("placed", "scheduled", "free_after"):
+            assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), \
+                (name, field)
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_refuses_what_it_cannot_schedule(cuda):
+    from kubernetes_autoscaler_tpu_torch.ops.bitplane import pack_group_bits
+
+    free, mask, req, count, limit_one, waves = [
+        a.to(cuda) for a in wave_cases.wave_case(0, 6, 64)]
+    bits = (free, pack_group_bits(mask), req, count, limit_one.to(torch.int32),
+            waves)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavefront_kernel.launch(*bits, cluster=17)     # above the cluster limit
+    # shared memory beyond the opt-in limit: a plan of a million waves
+    many = torch.full((1 << 20, 1), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavefront_kernel.launch(*bits[:5], many)
+    # a free plane in shared memory that no CTA can hold
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavefront_kernel.config(6, 400_000, 8, 4, cluster=8, placement=2)
+    cfg = wavefront_kernel.config(6, 64, 8, 4)
+    assert cfg["cluster"] in (8, 16) and cfg["plane"] == "shared memory"
+    # beyond shared memory the plane stays in device memory; the mask words
+    # and chunk sums (G/4 bytes a lane of a CTA) bound N: at G=64 and C=16
+    # about 210,000 lanes
+    assert wavefront_kernel.config(64, 200_000, 8, 4, cluster=16)["plane"] == \
+        "device memory"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wavefront_kernel.config(64, 240_000, 8, 4, cluster=16)

@@ -57,7 +57,7 @@ from kubernetes_autoscaler_tpu_torch.ops import (
     scoring,
     utilization,
 )
-from kubernetes_autoscaler_tpu_torch.ops.kernels import wavefront_kernel
+from kubernetes_autoscaler_tpu_torch.ops.kernels import wave_cases, wavefront_kernel
 
 MAX_NEW = 16
 STYLES = ["mixed", "overlap", "disjoint"]
@@ -337,6 +337,40 @@ def test_wavefront_wrapper_rejects_what_the_kernel_does_not_take():
     ok[0, 0] = 6
     with pytest.raises(ValueError, match="group ids"):
         wavefront_kernel.pack_groups_wavefront(*args, ok)
+
+
+@pytest.mark.parametrize("name", list(wave_cases.CASES))
+def test_wave_case_plain_matches_reference(name):
+    """Every case of the list the card holds K2 to: the port's plain
+    version (what the wrapper takes on CPU tensors) against the JAX
+    package's XLA pack_groups_wavefront, byte for byte."""
+    args = wave_cases.CASES[name]()
+    waves = args[5]
+    ref = ref_pack.pack_groups_wavefront(
+        *[a.numpy() for a in args[:5]],
+        ref_pack.WavefrontPlan(waves=jnp.asarray(waves.numpy()),
+                               n_waves=waves.shape[0], n_active=1))
+    _assert_pack_equal(ref, wavefront_kernel.pack_groups_wavefront(*args))
+
+
+def test_wavefront_wrapper_dispatches_on_the_tensors_device(monkeypatch):
+    """CPU tensors take the plain version and never reach the kernel; a
+    device with no kernel raises instead of falling back."""
+    def no_kernel(*a, **k):
+        raise AssertionError("the kernel was reached with CPU tensors")
+
+    args = wave_cases.CASES["negative counts"]()
+    monkeypatch.setattr(wavefront_kernel, "launch", no_kernel)
+    monkeypatch.setattr(wavefront_kernel, "_entry", no_kernel)
+    before = wavefront_kernel.pack_groups_wavefront.launches
+    got = wavefront_kernel.pack_groups_wavefront(*args)
+    want = wavefront_kernel.pack_groups_wavefront_plain(*args)
+    for name in ("placed", "scheduled", "free_after"):
+        assert torch.equal(getattr(got, name), getattr(want, name))
+    assert wavefront_kernel.pack_groups_wavefront.launches == before
+    monkeypatch.setattr(wavefront_kernel, "_check_waves", lambda w, g: None)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        wavefront_kernel.pack_groups_wavefront(*[a.to("meta") for a in args])
 
 
 # ---- host fetch and bit packing ----

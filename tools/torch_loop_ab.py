@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""`[loop]` of chip_smoke.py on the port of each given tree, in turns.
+"""`[loop]` (or `[main]`) of chip_smoke.py on the port of each given tree, in turns.
 
-    python3 tools/torch_loop_ab.py TREE [TREE ...]
+    python3 tools/torch_loop_ab.py [--phase loop|main] TREE [TREE ...]
 
 For each TREE (a checkout of the repo, e.g. the parent commit unpacked with
 `git archive` into a directory .gitignore lists), in the order given, a fresh
@@ -10,6 +10,9 @@ and runs THIS checkout's `chip_smoke.loop_phase` on the card: the same world,
 churn script and clock for every tree, so two trees compare within one call
 (give them as parent, change, change, parent). Prints one JSON line per run
 (the tree, the timed loops' ms, p50 and p90, the card) and needs a card.
+With `--phase main` each run is `chip_smoke.main_phase` instead (the fused
+step on the main world, 100 steps; the line holds the step p50 and p90 that
+the phase prints).
 """
 
 from __future__ import annotations
@@ -31,22 +34,35 @@ if not os.path.abspath(pack_kernel.__file__).startswith(tree):
     raise SystemExit(f"imported {pack_kernel.__file__}, not {tree}'s port")
 build.build([pack_kernel.SOURCE])
 card = c.card_line()
-_, _, _, (ms, _) = c.loop_phase(card, Dims(), pack_kernel.pack_groups_batched,
-                                pack_kernel.pack_groups_batched_plain)
-print(json.dumps({"tree": tree, "ms": ms, "p50": c.pct(ms, 50),
-                  "p90": c.pct(ms, 90), "card": card}))
+k1, k1_plain = pack_kernel.pack_groups_batched, pack_kernel.pack_groups_batched_plain
+if sys.argv[3] == "main":
+    import argparse, contextlib, io, re
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        c.main_phase(argparse.Namespace(profile=None), Dims(), k1, k1_plain)
+    p50, p90 = map(float, re.search(r"\\[main\\] step ms over \\d+ steps: p50 (\\S+) p90 (\\S+)",
+                                    out.getvalue()).groups())
+    print(json.dumps({"tree": tree, "phase": "main", "p50": p50, "p90": p90, "card": card}))
+else:
+    _, _, _, (ms, _) = c.loop_phase(card, Dims(), k1, k1_plain)
+    print(json.dumps({"tree": tree, "ms": ms, "p50": c.pct(ms, 50),
+                      "p90": c.pct(ms, 90), "card": card}))
 """
 
 
 def main() -> int:
-    trees = [os.path.abspath(t) for t in sys.argv[1:]]
+    args = sys.argv[1:]
+    phase = "loop"
+    if args[:1] == ["--phase"] and len(args) > 1:
+        phase, args = args[1], args[2:]
+    trees = [os.path.abspath(t) for t in args]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     smoke = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chip_smoke.py")
     for tree in trees:
-        r = subprocess.run([sys.executable, "-c", CHILD, tree, smoke],
+        r = subprocess.run([sys.executable, "-c", CHILD, tree, smoke, phase],
                            cwd=tree, capture_output=True, text=True,
                            timeout=900)
         if r.returncode != 0:
