@@ -50,7 +50,24 @@ its own failure:
                 the CPU and 8 on the card: every loop's decision-surface
                 digests, fused mode, speculation outcome and round trips
                 equal
- 10. journal    the loop of 8 with the flight journal and the shadow audit
+ 10. whatif     the what-if multiverse, branched from [loop]'s autoscaler
+                after its timed loops: a `multiverse_step` of 16 lanes (the
+                null lane and 15 of bench.py's variants) at full width, 5
+                timed calls after a warm one (ms, ms per lane-step, K1
+                launches, round trips, peak memory), lane 0 byte-equal to a
+                serial `run_once_fused` on the branch world (its phase
+                times by CUDA events) and its verdict the live loop's; a
+                `rollout_multiverse` of 4 lanes x 8 loops of bursty
+                traffic (lane 1 a pending surge that grafts new nodes),
+                lane 1 equal to `rollout_fused`, one round trip,
+                no build-cache growth over a second variant set; bench.py's
+                identity gate (48 nodes, 16 lanes x 32 loops: the null
+                lane's trajectory digest equals 32 live loops; fused steps/s
+                and the speedup over the phased loop); a 512-node world's
+                lane and trajectory digests equal on the CPU and the card.
+                No host read of the device inside a multiverse step or a
+                rollout (torch.cuda sync debug mode "error" until the fetch)
+ 11. journal    the loop of 8 with the flight journal and the shadow audit
                 on (cold loop, 8 timed): loop times beside [loop]'s, the
                 journal's and the audit's time a loop, journal bytes,
                 rotations and drops, the audit's checks by surface and
@@ -61,17 +78,17 @@ its own failure:
                 journal replayed on the card without drift (its time a loop,
                 K1 launches); one more loop with the `flip_bit` fault on
                 the verdict plane, caught in that loop with its bundle
- 11. journal-cpu-card  the loop of 9 journaled: recorded on the card and
+ 12. journal-cpu-card  the loop of 9 journaled: recorded on the card and
                 replayed on the CPU, recorded on the CPU and replayed on the
                 card, both without drift, each side's backend named
- 12. entry      [loop]'s world (and one unfittable pod) as a scenario file:
+ 13. entry      [loop]'s world (and one unfittable pod) as a scenario file:
                 `python -m kubernetes_autoscaler_tpu_torch` with the journal
                 and the shadow audit, 4 loops, /healthz and /metrics scraped
                 while it serves (K1 launches read at its exit); then
                 `python -m kubernetes_autoscaler_tpu_torch.replay` (exit 0)
                 and `python -m kubernetes_autoscaler_tpu_torch.lineage ...
                 why` on the unfittable pod (exit 0): exit codes and times
- 13. constrained  `run_once_fused` with the constrained tier on the main
+ 14. constrained  `run_once_fused` with the constrained tier on the main
                 world with BASELINE.json config #5's constraints (20 of the
                 25 pending groups: zone spread, hostname spread, hostname
                 anti-affinity and zone affinity to residents): step and
@@ -79,17 +96,17 @@ its own failure:
                 torch.profiler, peak memory, the decision; the wave-check
                 interval swept (outputs byte-equal); `run_once_sim` with
                 constraints
- 14. constrained-cpu-card  a 512-node world with every constraint kind:
+ 15. constrained-cpu-card  a 512-node world with every constraint kind:
                 `run_once_fused`, `scale_up_sim` and `scale_down_sim` with
                 constraints on the CPU and on the card, leaves equal as in
                 7, the same chosen option, a group capped at MAX_WAVES
- 15. loop-constrained  the control loop on the constrained main world with
+ 16. loop-constrained  the control loop on the constrained main world with
                 the churn of 8: a cold loop, 4 timed; fused, at most 2
                 round trips, the native confirmation available
- 16. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
+ 17. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
                 time 0, 8 loops on the CPU and 8 on the card: digests equal
                 every loop, nodes deleted, the native confirmation ran
- 17. result     the kernels line, the card line, and the last line
+ 18. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -401,12 +418,13 @@ def describe(enc, groups) -> str:
 
 
 def flat(tree, prefix=""):
-    """{path: tensor} over a port result tree (None and int fields skipped)."""
+    """{path: tensor} over a port result tree, {path: array} over a fetched
+    one (None and int fields skipped)."""
     import dataclasses
 
     if tree is None or isinstance(tree, int):
         return {}
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return {prefix: tree}
     if isinstance(tree, tuple):
         out = {}
@@ -1154,7 +1172,8 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
     world, then, with `profile_dir`, the loop's profile. Returns (K1
     launches in the timed loops, per-loop launches, max abs err of K1 on
     the loop's inputs, the timed loops' ms and decision surfaces — read
-    after each loop's clock stopped — for [journal] to compare with)."""
+    after each loop's clock stopped — for [journal] to compare with, the
+    autoscaler for [whatif] to branch from)."""
     from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
     from kubernetes_autoscaler_tpu_torch.ops.schedule import filter_pack_inputs
@@ -1271,7 +1290,8 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
                          kernel, plain))
     if profile_dir:
         profile_loop(card, a, script, LOOP_STEPS, profile_dir)
-    return launches, [r["k1_launches"] for r in rows], err, (ms, surfaces)
+    return (launches, [r["k1_launches"] for r in rows], err, (ms, surfaces),
+            a)
 
 
 def loop_cpu_card_phase(card):
@@ -1297,6 +1317,373 @@ def loop_cpu_card_phase(card):
             f"({', '.join(f'{k} {v}' for k, v in c['digests'].items())}), "
             f"fused_mode {c['fused_mode']}, speculation {c['speculation']}, "
             f"round trips {c['round_trips']} ({card})")
+
+
+# ---------------------------------------------------------------- whatif
+
+WHATIF_LANES = 16        # [whatif] a: the null lane and 15 variants
+WHATIF_STEPS = 5         # a: timed multiverse steps after a warm one
+WHATIF_ROLL_LANES = 4    # b: the null lane and 3 variants
+WHATIF_ROLL_T = 8        # b: loops of each rollout
+WHATIF_SEED = 11         # b, d: the bursty workload's seed
+WHATIF_GATE_NODES = 48   # c: bench.py's world, min(max(nodes // 4, 16), 48)
+WHATIF_GATE_T = 32       # c: bench.py's rollout length (16 lanes)
+WHATIF_GATE_LOOPS = 8    # c: timed loops of the phased baseline
+WHATIF_SMALL_T = 4       # d: loops of the CPU-vs-card rollout
+
+
+def whatif_variants(b, n_nodes, knob=1.0):
+    """bench.py's what-if variant mix: the null lane, then in turn a price
+    scale, a scale-down threshold, a max_new cap and one failed node; a
+    second `knob` gives a second set of the same kinds."""
+    from kubernetes_autoscaler_tpu_torch.whatif.variants import VariantSpec
+
+    vs = [VariantSpec(name="null")]
+    for i in range(b - 1):
+        kind = i % 4
+        if kind == 0:
+            vs.append(VariantSpec(name=f"price{i}",
+                                  price_scale=0.5 + 0.25 * i * knob))
+        elif kind == 1:
+            vs.append(VariantSpec(name=f"thresh{i}",
+                                  threshold=min(0.2 + 0.05 * i * knob, 0.95)))
+        elif kind == 2:
+            vs.append(VariantSpec(name=f"cap{i}", max_new_cap=1 + i))
+        else:
+            vs.append(VariantSpec(name=f"fail{i}",
+                                  fail_nodes=(i % n_nodes,)))
+    return vs
+
+
+def roll_variants(n_nodes, knob=1.0):
+    """[whatif] b and d: the null lane, a pending surge (so that the
+    rollout grafts new nodes where the world has free slots), then
+    bench.py's first two kinds."""
+    from kubernetes_autoscaler_tpu_torch.whatif.variants import VariantSpec
+
+    return ([VariantSpec(name="surge", pending_scale=2.0 + knob)]
+            + whatif_variants(WHATIF_ROLL_LANES - 1, n_nodes, knob)[1:])
+
+
+def whatif_kw(branch) -> dict:
+    st = branch.statics
+    return dict(dims=st["dims"], max_new_nodes=st["max_new_nodes"],
+                max_pods_per_node=st["max_pods_per_node"])
+
+
+def compare_host(name, want, got, rtol=None) -> int:
+    """Every leaf of the same dtype and shape; int and bool leaves byte-equal,
+    float leaves too unless `rtol` is given. Returns the leaves compared."""
+    w, g = flat(want), flat(got)
+    if sorted(w) != sorted(g):
+        raise AssertionError(f"{name}: the trees differ in structure")
+    for path, a in w.items():
+        b = g[path]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}{path}: {a.dtype}{a.shape} vs "
+                                 f"{b.dtype}{b.shape}")
+        if a.dtype.kind == "f" and rtol is not None:
+            if not np.allclose(b, a, rtol=rtol, atol=0.0):
+                raise AssertionError(f"{name}{path}: float leaf differs")
+        elif a.tobytes() != b.tobytes():
+            raise AssertionError(f"{name}{path}: bytes differ")
+    return len(w)
+
+
+class no_host_reads:
+    """Inside: any operation that makes the host wait on the card raises
+    (torch.cuda sync debug mode "error"), except the result fetch of
+    `ops/hostfetch.fetch_pytree`, which is the one round trip allowed."""
+
+    def __enter__(self):
+        from kubernetes_autoscaler_tpu_torch.ops import hostfetch
+
+        self.hostfetch = hostfetch
+        self.real = real = hostfetch.fetch_pytree
+
+        def fetch(tree, phases=None):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return real(tree, phases)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        hostfetch.fetch_pytree = fetch
+        torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self.hostfetch.fetch_pytree = self.real
+        return False
+
+
+def whatif_phase(card, loop_a):
+    """Phase 10: the multiverse on the card. Returns K1's launches in a
+    timed multiverse step and in the timed rollout."""
+    from kubernetes_autoscaler_tpu_torch.ops import hostfetch
+    from kubernetes_autoscaler_tpu_torch.ops.autoscale_step import (
+        PHASES,
+        run_once_fused,
+    )
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import build, pack_kernel
+    from kubernetes_autoscaler_tpu_torch.whatif import kernel, report, variants
+
+    k1 = pack_kernel.pack_groups_batched
+    t_phase = time.perf_counter()
+
+    # a. multiverse_step at full width, branched from the live loop
+    branch = variants.branch_from_live(loop_a)
+    live = loop_a._fused_ctx["decision"]
+    kw = whatif_kw(branch)
+    t0 = time.perf_counter()
+    lanes = variants.build_lanes(
+        branch, whatif_variants(WHATIF_LANES, LOOP_NODES)[1:],
+        pad_to=WHATIF_LANES)
+    torch.cuda.synchronize()
+    log(f"[whatif] a: branched [loop]'s last fused dispatch (nodes "
+        f"{branch.nodes.n}, pending groups {branch.specs.g}, residents "
+        f"{branch.scheduled.p}, node groups {branch.groups.ng}); "
+        f"{len(lanes.variants)} lanes built in "
+        f"{(time.perf_counter() - t0) * 1e3} ms ({card})")
+    cap_dev = torch.from_numpy(branch.limit_cap).to(DEVICE)
+
+    def serial():
+        dec, _res = run_once_fused(branch.nodes, branch.specs,
+                                   branch.scheduled, branch.groups, cap_dev,
+                                   **kw)
+        return dec
+
+    serial_ms = host_ms(serial, 3, warmup=1)
+    events = {}
+
+    def on_phase(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    torch.cuda.synchronize()
+    dec_dev, _res = run_once_fused(branch.nodes, branch.specs,
+                                   branch.scheduled, branch.groups, cap_dev,
+                                   on_phase=on_phase, **kw)
+    want = hostfetch.fetch_pytree(dec_dev)
+    phase_ms = {p: events[p].elapsed_time(events[q]) for p, q in
+                zip(PHASES, PHASES[1:] + ("end",))}
+    log(f"[whatif] a: serial run_once_fused on the branch world: p50 "
+        f"{pct(serial_ms, 50)} ms over {len(serial_ms)}; phases "
+        f"{json.dumps(phase_ms)} ms ({card})")
+
+    torch.cuda.reset_peak_memory_stats()
+    with no_host_reads():
+        kernel.multiverse_step(lanes.nodes, lanes.specs, lanes.scheduled,
+                               lanes.groups, lanes.limit_cap, **kw)
+    step_ms, trips, launches = [], [], []
+    for _ in range(WHATIF_STEPS):
+        torch.cuda.synchronize()
+        hostfetch.reset_round_trips()
+        k1.launches = 0
+        t0 = time.perf_counter()
+        with no_host_reads():
+            dec, summary = kernel.multiverse_step(
+                lanes.nodes, lanes.specs, lanes.scheduled, lanes.groups,
+                lanes.limit_cap, **kw)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(k1.launches)
+        trips.append(hostfetch.round_trips())
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_leaves = compare_host("[whatif] a: lane 0 against the serial step",
+                            want, kernel._lane(dec, 0))
+    if dec.verdict[0].tobytes() != np.asarray(live.verdict).tobytes():
+        raise AssertionError("[whatif] a: lane 0's verdict is not the live "
+                             "loop's fused decision")
+    for path, x in flat(summary).items():
+        if x.dtype.kind == "f" and not np.isfinite(x).all():
+            raise AssertionError(f"[whatif] a: summary{path} is not finite")
+    if any(t != 1 for t in trips):
+        raise AssertionError(f"[whatif] a: round trips {trips}, not 1")
+    if any(n != 2 * WHATIF_LANES for n in launches):
+        raise AssertionError(f"[whatif] a: K1 launches {launches}, not "
+                             f"{2 * WHATIF_LANES} a step")
+    p50 = pct(step_ms, 50)
+    log(f"[whatif] a: multiverse_step B={WHATIF_LANES} ms over "
+        f"{WHATIF_STEPS} calls (host clock to the end of the one fetch): "
+        f"{step_ms}; p50 {p50} p90 {pct(step_ms, 90)}; ms per lane-step "
+        f"{p50 / WHATIF_LANES}; K1 launches a step {launches}; round trips "
+        f"{trips}; peak device memory {peak_mib:.1f} MiB ({card})")
+    log(f"[whatif] a: lane 0 == serial run_once_fused ({n_leaves} leaves "
+        f"byte-equal), verdict == the live loop's; lanes' best "
+        f"{summary.best.tolist()}, nodes added "
+        f"{summary.nodes_added.tolist()}, scale-up cost "
+        f"{summary.scaleup_cost.tolist()}, disruption "
+        f"{summary.disruption.tolist()} ({card})")
+    log(f"[whatif] a: lane digests "
+        f"{[d[:12] for d in report.lane_digests(dec, lanes.real)]} ({card})")
+    del lanes, dec, summary
+
+    # b. rollout_multiverse at full width: bursty traffic, 4 lanes x 8 loops
+    from kubernetes_autoscaler_tpu_torch.whatif.generator import (
+        WorkloadSpec,
+        generate_workload,
+        lane_workloads,
+    )
+
+    def roll_lanes(knob):
+        return variants.build_lanes(branch, roll_variants(LOOP_NODES, knob),
+                                    pad_to=WHATIF_ROLL_LANES)
+
+    def workload(ln, kind, t_steps):
+        adds, fails = generate_workload(
+            WorkloadSpec(kind=kind, seed=WHATIF_SEED), t_steps,
+            ln.specs.count.shape[1], ln.nodes.valid.shape[1])
+        adds_b, fails_b = lane_workloads(ln.variants, adds, fails)
+        return (torch.from_numpy(adds_b).to(ln.nodes.cap.device),
+                torch.from_numpy(fails_b).to(ln.nodes.cap.device))
+
+    def roll(ln, adds, fails, kw):
+        with no_host_reads():
+            return kernel.rollout_multiverse(
+                ln.nodes, ln.specs, ln.scheduled, ln.groups, ln.limit_cap,
+                ln.thresholds, adds, fails, **kw)
+
+    rl = roll_lanes(1.0)
+    adds, fails = workload(rl, "bursty", WHATIF_ROLL_T)
+    torch.cuda.synchronize()
+    size0 = build.cache_size()
+    hostfetch.reset_round_trips()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    traj = roll(rl, adds, fails, kw)
+    roll_ms = (time.perf_counter() - t0) * 1e3
+    roll_launches, roll_trips = k1.launches, hostfetch.round_trips()
+    with no_host_reads():
+        one = kernel.rollout_fused(
+            kernel._lane(rl.nodes, 1), kernel._lane(rl.specs, 1),
+            kernel._lane(rl.scheduled, 1), kernel._lane(rl.groups, 1),
+            rl.limit_cap[1], rl.thresholds[1], adds[1], fails[1], **kw)
+    compare_host("[whatif] b: lane 1 against rollout_fused",
+                 kernel._lane(traj, 1), one, rtol=1e-5)
+    rl2 = roll_lanes(1.3)
+    torch.cuda.synchronize()
+    hostfetch.reset_round_trips()
+    t0 = time.perf_counter()
+    traj2 = roll(rl2, adds, fails, kw)
+    roll2_ms = (time.perf_counter() - t0) * 1e3
+    roll2_trips = hostfetch.round_trips()
+    growth = build.cache_size() - size0
+    lane_steps = WHATIF_ROLL_LANES * WHATIF_ROLL_T
+    if roll_trips != 1 or roll2_trips != 1:
+        raise AssertionError(f"[whatif] b: round trips {roll_trips}, "
+                             f"{roll2_trips}, not 1 a rollout")
+    if roll_launches != 2 * lane_steps:
+        raise AssertionError(f"[whatif] b: K1 launches {roll_launches}, not "
+                             f"{2 * lane_steps}")
+    if growth != 0:
+        raise AssertionError(f"[whatif] b: the build cache grew by {growth}")
+    rep = report.build_report(rl, traj=traj)["rollout"]
+    rep2 = report.build_report(rl2, traj=traj2)["rollout"]
+    log(f"[whatif] b: rollout_multiverse B={WHATIF_ROLL_LANES} "
+        f"T={WHATIF_ROLL_T} bursty: {roll_ms} ms ({roll_ms / lane_steps} "
+        f"ms per lane-step), second variant set {roll2_ms} ms; K1 launches "
+        f"{roll_launches}; round trips {roll_trips}, {roll2_trips}; build "
+        f"cache growth {growth}; lane 1 == rollout_fused ({card})")
+    log(f"[whatif] b: per lane {json.dumps(rep['perLane'])}; trajectory "
+        f"digests {[d[:12] for d in rep['trajectoryDigests']]}, second set "
+        f"{[d[:12] for d in rep2['trajectoryDigests']]} ({card})")
+    del rl, rl2, traj, traj2, one, branch, cap_dev
+
+    # c. bench.py's identity gate: 48 nodes in equilibrium, 16 x 32
+    from kubernetes_autoscaler_tpu_torch.whatif.synthetic import (
+        synthetic_autoscaler,
+        synthetic_branch,
+    )
+
+    gate, auto = synthetic_branch(n_nodes=WHATIF_GATE_NODES, n_pending=12,
+                                  seed=7, loops=2, pending_milli=64000,
+                                  device=DEVICE)
+    verd, pend = [], []
+    t0 = time.perf_counter()
+    for k in range(WHATIF_GATE_T):
+        st = auto.run_once(now=2000.0 + 10.0 * k)
+        if st.fused_mode != "fused":
+            raise AssertionError(f"[whatif] c: live loop {k} ran "
+                                 f"{st.fused_mode}")
+        verd.append(np.array(auto._fused_ctx["decision"].verdict))
+        pend.append(np.array(auto._fused_ctx["decision"].pending_after))
+    live_s = time.perf_counter() - t0
+    live_digest = report._digest(np.stack(verd), np.stack(pend))
+    gkw = whatif_kw(gate)
+    gl = variants.build_lanes(
+        gate, whatif_variants(WHATIF_LANES, WHATIF_GATE_NODES)[1:],
+        pad_to=WHATIF_LANES)
+    gl2 = variants.build_lanes(
+        gate, whatif_variants(WHATIF_LANES, WHATIF_GATE_NODES, 1.3)[1:],
+        pad_to=WHATIF_LANES)
+    gadds, gfails = workload(gl, "quiet", WHATIF_GATE_T)
+    # bench.py's three timed rollouts (its warm one is a compile, which
+    # the port does not have)
+    gate_s = []
+    for ln in (gl, gl2, gl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gtraj = roll(ln, gadds, gfails, gkw)
+        gate_s.append(time.perf_counter() - t0)
+    null_digest = report.trajectory_digests(gtraj, 1)[0]
+    if null_digest != live_digest:
+        raise AssertionError("[whatif] c: the null lane's trajectory is not "
+                             f"{WHATIF_GATE_T} live loops'")
+    _fake, phased = synthetic_autoscaler(
+        n_nodes=WHATIF_GATE_NODES, n_pending=12, seed=7,
+        pending_milli=64000, fused_loop=False, device=DEVICE)
+    for k in range(2):
+        phased.run_once(now=1000.0 + 10.0 * k)
+    phased_s = []
+    for k in range(WHATIF_GATE_LOOPS):
+        t0 = time.perf_counter()
+        phased.run_once(now=2000.0 + 10.0 * k)
+        phased_s.append(time.perf_counter() - t0)
+    rollout_s = statistics.median(gate_s)
+    fused_sps = WHATIF_LANES * WHATIF_GATE_T / rollout_s
+    serial_sps = 1.0 / statistics.median(phased_s)
+    log(f"[whatif] c: bench.py's gate ({WHATIF_GATE_NODES} nodes, "
+        f"{WHATIF_LANES} lanes x {WHATIF_GATE_T} loops): null lane == "
+        f"{WHATIF_GATE_T} live loops ({live_s} s); rollouts {gate_s} s, "
+        f"median {rollout_s} s; fused steps/s {fused_sps}; phased loop p50 "
+        f"{statistics.median(phased_s) * 1e3} ms, serial steps/s "
+        f"{serial_sps}; speedup {fused_sps / serial_sps} ({card})")
+    del gate, auto, gl, gl2, gtraj, phased
+
+    # d. CPU against the card on a 512-node world
+    pods = LOOP_PODS * LOOP_SMALL_NODES // LOOP_NODES
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        fake = loop_world(LOOP_SMALL_NODES, pods)
+        a = loop_autoscaler(fake, dev)
+        a.run_once(now=1000.0)
+        br = variants.branch_from_live(a)
+        ln = variants.build_lanes(br, roll_variants(LOOP_SMALL_NODES),
+                                  pad_to=WHATIF_ROLL_LANES)
+        dkw = whatif_kw(br)
+        dec, summary = kernel.multiverse_step(
+            ln.nodes, ln.specs, ln.scheduled, ln.groups, ln.limit_cap, **dkw)
+        adds, fails = workload(ln, "bursty", WHATIF_SMALL_T)
+        traj = kernel.rollout_multiverse(
+            ln.nodes, ln.specs, ln.scheduled, ln.groups, ln.limit_cap,
+            ln.thresholds, adds, fails, **dkw)
+        runs[dev] = (report.lane_digests(dec, ln.real),
+                     report.trajectory_digests(traj, ln.real), summary, traj)
+    c, g = runs["cpu"], runs[DEVICE]
+    if c[0] != g[0] or c[1] != g[1]:
+        raise AssertionError("[whatif] d: lane or trajectory digests differ "
+                             "between the CPU and the card")
+    n_sum = compare_host("[whatif] d: summary", c[2], g[2], rtol=1e-5)
+    n_traj = compare_host("[whatif] d: trajectory", c[3], g[3], rtol=1e-5)
+    log(f"[whatif] d: {LOOP_SMALL_NODES} nodes, B={WHATIF_ROLL_LANES}, "
+        f"T={WHATIF_SMALL_T}: lane digests {[d[:12] for d in c[0]]} and "
+        f"trajectory digests {[d[:12] for d in c[1]]} equal on the CPU and "
+        f"the card; {n_sum} summary and {n_traj} trajectory leaves within "
+        f"rtol 1e-5 ({card})")
+    log(f"[whatif] phase wall time {time.perf_counter() - t_phase} s ({card})")
+    return {"multiverse_step": launches[-1], "rollout_multiverse":
+            roll_launches}
 
 
 # ---------------------------------------------------------------- journal
@@ -2235,6 +2622,7 @@ def main() -> int:
                     help="also profile one fused step and the control loop "
                          "(host and device); traces and stats go to DIR")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2300,17 +2688,20 @@ def main() -> int:
     # 7. CPU against the card at 512 nodes
     cpu_card_phase(dims)
     # 8. the control loop at the bench_runonce_e2e world
-    loop_launches, loop_per_loop, err, loop_ref = loop_phase(
+    loop_launches, loop_per_loop, err, loop_ref, loop_a = loop_phase(
         card, dims, k1, k1_plain, args.profile)
     k1_err = max(k1_err, err)
     # 9. the control loop, CPU against the card at 512 nodes
     loop_cpu_card_phase(card)
-    # 10-12. the journal, the shadow audit and the replay at full width,
+    # 10. the what-if multiverse, branched from [loop]'s autoscaler
+    whatif_launches = whatif_phase(card, loop_a)
+    del loop_a
+    # 11-13. the journal, the shadow audit and the replay at full width,
     # the cross-device replays, the command lines
     journal_launches = journal_phase(card, loop_ref)
     journal_cpu_card_phase(card)
     entry_launches = entry_phase(card)
-    # 13-16. the constrained tier: the fused step at full width, the steps
+    # 14-17. the constrained tier: the fused step at full width, the steps
     # CPU against the card, the control loop at full width and CPU against
     # the card
     constrained_phase(dims, card, args.profile)
@@ -2318,7 +2709,7 @@ def main() -> int:
     loop_constrained_phase(card)
     loop_constrained_cpu_card_phase(card)
 
-    # 17. result: `ms` is the kernel as launched from Python (CUDA events
+    # 18. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{
@@ -2338,6 +2729,7 @@ def main() -> int:
         "journal_loop_launches": journal_launches["loop_launches"],
         "replay_launches": journal_launches["replay_launches"],
         "entry_launches": entry_launches,
+        "whatif_launches": whatif_launches,
     }, {
         "name": "pack_groups_wavefront",
         "route": "cuda",
@@ -2351,6 +2743,7 @@ def main() -> int:
         "shapes": "scale_up_sim with a wavefront plan: the filter pack on the "
                   "partitioned world, one launch per step",
     }]
+    log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,7 @@ class ScaleUpPrep:
     and the cap doubles as a stable speculation-key component."""
 
     groups: list
+    upcoming_only: bool
     templates: list
     group_tensors: object        # NodeGroupTensors (device)
     estimator: BinpackingEstimator
@@ -107,6 +108,7 @@ class ScaleUpOrchestrator:
         quota: QuotaTracker | None = None,
         node_group_list_processor=None,
         node_group_manager=None,
+        async_creator=None,
         device=None,
     ):
         from kubernetes_autoscaler_tpu_torch.processors.nodegroups import (
@@ -153,6 +155,9 @@ class ScaleUpOrchestrator:
             node_group_list_processor or IdentityNodeGroupListProcessor()
         )
         self.node_group_manager = node_group_manager or NodeGroupManager()
+        # AsyncNodeGroupCreator when --async-node-group-creation is on
+        # (reference: CreateNodeGroupAsync orchestrator.go:453)
+        self.async_creator = async_creator
         # template-tensor cache: the static planes (cap/labels/taints/zone)
         # change only when templates change; max_new/price change every
         # accepted scale-up and are refreshed as two small arrays instead of
@@ -193,13 +198,22 @@ class ScaleUpOrchestrator:
     # ---- the main entry (reference: ScaleUp :88) ----
 
     def _candidate_groups(self, enc: EncodedCluster,
-                          now: float) -> list[NodeGroup]:
+                          now: float) -> tuple[list[NodeGroup], bool]:
         groups = self._valid_groups(now)
         # candidate extension (reference: NodeGroupListProcessor — the
         # autoprovisioning variant appends not-yet-existing groups)
-        return self.node_group_list_processor.process(
+        groups = self.node_group_list_processor.process(
             self.provider, groups, enc.pending_pods
         )
+        upcoming_only = False
+        if self.async_creator is not None:
+            # a group whose creation is still in flight must not be
+            # re-proposed (reference: AsyncNodeGroupStateChecker gating)
+            before = groups
+            groups = [g for g in before
+                      if not self.async_creator.is_upcoming(g.id())]
+            upcoming_only = bool(before) and not groups
+        return groups, upcoming_only
 
     def _build_estimator(self, enc: EncodedCluster) -> BinpackingEstimator:
         return BinpackingEstimator(
@@ -236,7 +250,7 @@ class ScaleUpOrchestrator:
         over). The host-composed `limit_cap` replicates
         `combined_limit_vec` over the three built-in limiters exactly;
         tests/test_fused_loop.py pins the equivalence."""
-        groups = self._candidate_groups(enc, now)
+        groups, upcoming_only = self._candidate_groups(enc, now)
         if not groups:
             return None
         estimator = self._build_estimator(enc)
@@ -261,7 +275,8 @@ class ScaleUpOrchestrator:
         else:
             cap_dev = torch.from_numpy(cap.copy()).to(self.device)
             self._limit_cap_cache = (cap, cap_dev)
-        return ScaleUpPrep(groups=groups, templates=templates, group_tensors=group_tensors,
+        return ScaleUpPrep(groups=groups, upcoming_only=upcoming_only,
+                           templates=templates, group_tensors=group_tensors,
                            estimator=estimator, gpu_slot=gpu_slot,
                            limit_cap=cap, limit_cap_dev=cap_dev)
 
@@ -292,12 +307,17 @@ class ScaleUpOrchestrator:
 
         if precomputed is not None:
             groups = precomputed.prep.groups
+            upcoming_only = precomputed.prep.upcoming_only
         else:
-            groups = self._candidate_groups(enc, now)
+            groups, upcoming_only = self._candidate_groups(enc, now)
         if not groups:
             # no candidate group exists — every pending group gets the
-            # summary reason without any device dispatch
-            self._note_no_groups(enc, now)
+            # summary reason without any device dispatch. If candidates
+            # exist but are all still being created, "no node group can
+            # help" would be false — capacity for these pods is in flight —
+            # so no refusal verdict is recorded.
+            if not upcoming_only:
+                self._note_no_groups(enc, now)
             return ScaleUpResult(scaled_up=False, pods_remaining=pending_total)
 
         if precomputed is not None:
@@ -741,6 +761,13 @@ class ScaleUpOrchestrator:
         def one(gid: str, delta: int):
             g = by_id[gid]
             if not g.exist():
+                if (self.async_creator is not None
+                        and self.options.async_node_group_creation):
+                    # fire-and-track: creation + initial scale-up happen off
+                    # the loop thread; capacity counts as upcoming meanwhile
+                    # (reference: CreateNodeGroupAsync + async_initializer.go)
+                    self.async_creator.create_async(g, delta, now)
+                    return gid, delta, True
                 # winner is an auto-provisioning candidate: create first
                 # (reference: orchestrator CreateNodeGroup before IncreaseSize)
                 self.node_group_manager.create_node_group(g)
@@ -748,7 +775,7 @@ class ScaleUpOrchestrator:
                 g.atomic_increase_size(delta)
             else:
                 g.increase_size(delta)
-            return delta
+            return gid, delta, False
 
         workers = 8 if self.options.parallel_scale_up else 1
         with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
@@ -756,9 +783,12 @@ class ScaleUpOrchestrator:
             for fut in concurrent.futures.as_completed(futures):
                 gid = futures[fut]
                 try:
-                    delta = fut.result()
+                    _, delta, async_pending = fut.result()
                     result.increases[gid] = delta
-                    self.cluster_state.register_scale_up(by_id[gid], delta, now)
+                    if not async_pending:
+                        # async creations register with the CSR when the
+                        # creator's pipeline completes, not here
+                        self.cluster_state.register_scale_up(by_id[gid], delta, now)
                     result.scaled_up = True
                 except NodeGroupError as e:
                     result.errors[gid] = str(e)

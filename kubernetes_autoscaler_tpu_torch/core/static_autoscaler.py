@@ -16,10 +16,9 @@ The port's copy of the reference package's control loop. `device` (None =
 CUDA, raising without a card; "cpu" runs the plain PyTorch versions) is
 where every tensor the loop makes lives: the world store, the limiter cap,
 the group tensors, the probe, the shadow audit's re-reads; the flight
-journal stamps it into every record. Features the port does not have yet
-raise NotImplementedError naming their ROADMAP item instead of running an
-approximation: the gRPC expander, async node-group creation and a device
-mesh.
+journal stamps it into every record. A device mesh, which the port does
+not have yet, raises NotImplementedError naming its ROADMAP item instead of
+running an approximation.
 """
 
 from __future__ import annotations
@@ -133,7 +132,6 @@ class StaticAutoscaler:
 
         self.device = resolve_device(device)
         self.options = options or AutoscalingOptions()
-        _refuse_unported_options(self.options)
         self.provider = provider
         self.source = source
         # the RunOnce `now` domain (wall clock in production, logical time in
@@ -162,7 +160,17 @@ class StaticAutoscaler:
         limiter = merge_flag_limits(provider.get_resource_limiter(), self.options)
         self.quota = (QuotaTracker(limiter, None)  # registry set per loop
                       if self.options.capacity_quotas_enabled else None)
+        grpc_call = None
+        if self.options.grpc_expander_url and "grpc" in self.options.expander:
+            from kubernetes_autoscaler_tpu_torch.expander.grpc_transport import (
+                grpc_expander_call,
+            )
+
+            grpc_call = grpc_expander_call(
+                url=self.options.grpc_expander_url,
+                cert_file=self.options.grpc_expander_cert)
         expander = build_expander(self.options.expander, expander_priorities,
+                                  grpc_call=grpc_call,
                                   pricing=provider.pricing())
         # auto-provisioning wiring (reference: builder picks the
         # autoprovisioning NodeGroupListProcessor when the flag is on)
@@ -178,10 +186,20 @@ class StaticAutoscaler:
             )
             if self.options.node_autoprovisioning_enabled else None
         )
+        # async group creation (reference: CreateNodeGroupAsync + the
+        # AsyncNodeGroupStateChecker processor row)
+        self.async_creator = None
+        if self.options.async_node_group_creation:
+            from kubernetes_autoscaler_tpu_torch.core.scaleup.async_groups import (
+                AsyncNodeGroupCreator,
+            )
+
+            self.async_creator = AsyncNodeGroupCreator(self.cluster_state)
         self.scale_up_orchestrator = ScaleUpOrchestrator(
             provider, self.options, self.cluster_state, expander, None,
             node_group_list_processor=ng_list_proc,
             node_group_manager=self.node_group_manager,
+            async_creator=self.async_creator,
             device=self.device,
         )
         # shared scale-down trackers (reference: planner & actuator share one
@@ -802,6 +820,13 @@ class StaticAutoscaler:
             upcoming = self.cluster_state.upcoming_nodes()
             for gid, count in upcoming.items():
                 self._inject_template_nodes(snapshot, gid, count, "upcoming")
+            # capacity promised on still-creating groups (reference:
+            # AsyncNodeGroupStateChecker → upcoming accounting)
+            if self.async_creator is not None:
+                for gid, st in self.async_creator.upcoming().items():
+                    self._inject_template_nodes(
+                        snapshot, gid, st.initial_delta, "async-upcoming",
+                        template=st.template)
 
             # debugging snapshot collection (reference:
             # static_autoscaler.go:299-300,404 — only when /snapshotz armed)
@@ -1883,14 +1908,3 @@ def _fused_kwargs(statics: dict, planes) -> dict:
                                        "with_constraints")},
             "planes": planes}
 
-
-def _refuse_unported_options(o: AutoscalingOptions) -> None:
-    """Options whose feature the port does not have yet: each raises,
-    naming its ROADMAP item, instead of running without it."""
-    if o.grpc_expander_url and "grpc" in o.expander:
-        raise NotImplementedError(
-            "the gRPC expander is not ported (ROADMAP A11)")
-    if o.async_node_group_creation:
-        raise NotImplementedError(
-            "async_node_group_creation: async node-group creation is not "
-            "ported (ROADMAP A11)")

@@ -12,8 +12,10 @@ outcome and device round trips.
 Also pinned here: the port's fused loop equals its phased loop; a churned
 plane discards an armed speculation through the identity gate and a steady
 world harvests one; the compile census does not grow after the first
-loop; the features the port has not got raise NotImplementedError naming
-their ROADMAP item, and a constrained world does not; and the module-level pieces the loop rides — the
+loop; the options the loop once refused (the gRPC expander, async
+node-group creation) construct, a mesh still raises NotImplementedError
+naming its ROADMAP item, and a constrained world does not; and the
+module-level pieces the loop rides — the
 world store under fuzzed churn, the reason planes, `failure_reasons`,
 `AsyncFetch`, the encode seam that must copy (never alias) host arrays,
 the snapshot's verbs, and the device observability (compile census, HBM
@@ -234,12 +236,24 @@ def test_world_store_scatter_is_out_of_place():
     ("grpc_expander_url", "localhost:1", "ROADMAP A11"),
 ])
 def test_unported_option_raises(option, value, item):
+    """The options the loop refused until `item` was ported construct now
+    and run a loop: the gRPC expander's call and the async creator are
+    built as in the reference (tests/test_torch_grpc.py drives both)."""
     fake = _world("torch")
     kw = {option: value}
     if option == "grpc_expander_url":
+        pytest.importorskip("grpc")
         kw["expander"] = "grpc"
-    with pytest.raises(NotImplementedError, match=item):
-        _autoscaler("torch", fake, **kw)
+    a = _autoscaler("torch", fake, **kw)
+    if option == "async_node_group_creation":
+        assert a.async_creator is not None
+        assert a.scale_up_orchestrator.async_creator is a.async_creator
+    else:
+        assert a.async_creator is None
+    st = a.run_once(now=1000.0)
+    assert st.fused_mode == "fused"
+    if a.async_creator is not None:
+        a.async_creator.wait_idle()
 
 
 def test_mesh_and_constrained_world_raise():
