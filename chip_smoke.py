@@ -106,7 +106,30 @@ its own failure:
  17. loop-constrained-cpu-card  that loop world at 512 nodes with unneeded
                 time 0, 8 loops on the CPU and 8 on the card: digests equal
                 every loop, nodes deleted, the native confirmation ran
- 18. result     the kernels line, the card line, and the last line
+ 18. sidecar    the simulation sidecar serving a fleet: 4 large tenants
+                ([loop]'s world, written once as one KAD1 payload, plus a
+                delta of each tenant's own) and 4 small ones (1,000 nodes,
+                10,000 pending pods) on a batched service (4 lanes, a 25 ms
+                window) and on a serial one; per tenant a thread, rounds
+                released together: 2 warm-up rounds, 5 timed ScaleUpSim and
+                2 timed ScaleDownSim rounds (ms per RPC by kind, class and
+                tier, sims/s, batches, occupancy, K1 launches a batch), a
+                lone member padded to 4 lanes, a ninth tenant joining the
+                large class, a 500-pod churn delta. Asserted: every batched
+                response equals the serial service's, no world h2d and no
+                build over the steady rounds, one fetch a batch, the churn
+                uploads that tenant's dirty sections alone, the ninth
+                tenant's recompiles_per_new_tenant 0, the batched sims free
+                of host reads, K1 byte-equal to its plain version on a large
+                lane's inputs (and its times there); WhatIf (bench.py's
+                variant kinds, a 4-loop rollout) equal to the port's
+                whatif/ called directly; with grpcio, ScaleUpSim over gRPC
+ 19. sidecar-cpu-card  4 tenants of 256 nodes (ScaleUpSim, ScaleDownSim
+                batched, WhatIf) and a constrained KAUX tenant of 16 nodes
+                (the serial tier) on the CPU and on the card, the shadow
+                audit on: ids, ints, bools and chosen options equal, floats
+                within rtol 1e-5, no audit divergence
+ 20. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -2616,6 +2639,719 @@ def profile_loop(card, a, script, first, out_dir):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- sidecar
+
+SIDE_LARGE = 4            # large tenants: [loop]'s world each
+SIDE_SMALL = 4            # small tenants
+SIDE_SMALL_NODES = 1000
+SIDE_SMALL_PODS = 10000
+SIDE_LANES = 4            # the batched service's batch_lanes
+SIDE_WINDOW_MS = 25.0     # its batch_window_ms
+SIDE_WINDOW_MAX = 8       # its batch_window_max
+SIDE_WARM = 2             # warm-up rounds of each kind
+SIDE_UP_ROUNDS = 5        # timed ScaleUpSim rounds
+SIDE_DOWN_ROUNDS = 2      # timed ScaleDownSim rounds
+SIDE_THRESHOLD = 0.5
+SIDE_MAX_NEW = 256
+SIDE_CHURN = 500          # pending pods replaced by the churn delta
+SIDE_CHUNK = 2000         # objects a DeltaWriter chunk writes
+SIDE_WHATIF_T = 4         # loops of the WhatIf rollout
+SIDE_CPU_CARD_NODES = 256
+
+
+def side_node_groups():
+    """Every request's node groups: [loop]'s ng1 template and bench.py's
+    sidecar templates (bench.py:1487-1494)."""
+    mib = 1024 * 1024
+    return [
+        {"id": "ng1", "template": {"name": "tmpl", "capacity": {
+            "cpu": 16.0, "memory": 65536 * mib, "pods": 110}},
+         "max_new": 4 * LOOP_NODES, "price": 1.0},
+        {"id": "ng-4c", "template": {"name": "t4", "capacity": {
+            "cpu": 4.0, "memory": 16384 * mib, "pods": 110}},
+         "max_new": 32, "price": 1.0},
+        {"id": "ng-8c", "template": {"name": "t8", "capacity": {
+            "cpu": 8.0, "memory": 32768 * mib, "pods": 110}},
+         "max_new": 32, "price": 1.9},
+    ]
+
+
+def kad1_merge(payloads):
+    """One KAD1 payload from payloads written in order by separate
+    DeltaWriters: the op counts add, the bodies concatenate and the KAUX
+    trailers merge, so the result is the bytes one writer would write for
+    the same calls. (A writer scans its aux delete list once per unlabelled
+    pod, so one writer of a whole world takes time quadratic in its pods;
+    chunks keep each scan short.)"""
+    import struct
+    import zlib
+
+    from kubernetes_autoscaler_tpu_torch.sidecar.wire import (
+        AUX_MAGIC,
+        MAGIC,
+        split_aux,
+    )
+
+    count, bodies, up, dels = 0, [], {}, []
+    for p in payloads:
+        dense, aux = split_aux(p)
+        if dense[:4] != MAGIC:
+            raise AssertionError("kad1_merge: not a KAD1 payload")
+        count += struct.unpack("<I", dense[4:8])[0]
+        bodies.append(dense[8:])
+        if aux is not None:
+            up.update(aux["up"])
+            dels.extend(aux["del"])
+    out = MAGIC + struct.pack("<I", count) + b"".join(bodies)
+    if up or dels:
+        doc = json.dumps({"up": up, "del": dels}).encode()
+        out += (doc + struct.pack("<I", len(doc))
+                + struct.pack("<I", zlib.crc32(doc)) + AUX_MAGIC)
+    return out
+
+
+def side_world_calls(n_nodes, n_pods):
+    """loop_world's objects as DeltaWriter calls, in order: nodes of 16 CPU
+    / 64 GiB / 110 pods, two movable residents on each, `n_pods` pending
+    pods (loop_pod)."""
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    for i in range(n_nodes):
+        yield "node", build_test_node(f"n{i}", cpu_milli=16000,
+                                      mem_mib=65536, pods=110)
+    for i in range(n_nodes):
+        per_pod = 1600 if i < n_nodes // 16 else 3200
+        for j in range(2):
+            yield "resident", build_test_pod(
+                f"r{i}-{j}", cpu_milli=per_pod, mem_mib=1024,
+                owner_name=f"rs{i % 17}", node_name=f"n{i}")
+    for i in range(n_pods):
+        yield "pod", loop_pod(i, i)
+
+
+def side_payload(calls, chunk=SIDE_CHUNK):
+    """The calls written in chunks of `chunk` and merged (kad1_merge)."""
+    from kubernetes_autoscaler_tpu_torch.sidecar.wire import DeltaWriter
+
+    payloads, w, k = [], DeltaWriter(), 0
+    for what, obj in calls:
+        if what == "node":
+            w.upsert_node(obj)
+        elif what == "delete":
+            w.delete_pod(obj)
+        else:
+            w.upsert_pod(obj, movable=what == "resident")
+        k += 1
+        if k == chunk:
+            payloads.append(w.payload())
+            w, k = DeltaWriter(), 0
+    payloads.append(w.payload())
+    return kad1_merge(payloads)
+
+
+def side_tenant_delta(i, tag):
+    """Tenant i's own delta: 100 (i + 1) more pending pods in owner group
+    i, and node i cordoned, so no two tenants hold the same world."""
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    node = build_test_node(f"n{i}", cpu_milli=16000, mem_mib=65536, pods=110)
+    node.unschedulable = True
+    calls = [("node", node)] + [
+        ("pod", build_test_pod(f"{tag}-{k}", cpu_milli=500, mem_mib=512,
+                               owner_name=f"prs{i % LOOP_POD_GROUPS}"))
+        for k in range(100 * (i + 1))]
+    return side_payload(calls)
+
+
+def side_churn(n_pods):
+    """SIDE_CHURN pending pods leave and as many arrive."""
+    calls = [("delete", f"uid-default/p{k}") for k in range(SIDE_CHURN)]
+    calls += [("pod", loop_pod(n_pods + k, k)) for k in range(SIDE_CHURN)]
+    return side_payload(calls)
+
+
+def side_strip(resp):
+    if not isinstance(resp, dict):
+        raise AssertionError(f"[sidecar] not a response: {resp!r}")
+    if resp.get("error"):
+        raise AssertionError(f"[sidecar] error response: {resp['error']}")
+    # through JSON, as a client reads it
+    return json.loads(json.dumps(
+        {k: v for k, v in resp.items() if k not in ("lifecycle", "trace")}))
+
+
+def compare_json(name, want, got, rtol=None, path="") -> int:
+    """Two responses equal: keys, ids, ints and bools exactly; floats
+    exactly too unless `rtol` is given. Returns the floats that differ at
+    all (within rtol)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(want) != sorted(got):
+            raise AssertionError(f"{name}{path}: keys differ")
+        return sum(compare_json(name, want[k], got[k], rtol, f"{path}.{k}")
+                   for k in want)
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(want) != len(got):
+            raise AssertionError(f"{name}{path}: lists differ in length")
+        return sum(compare_json(name, a, b, rtol, f"{path}[{i}]")
+                   for i, (a, b) in enumerate(zip(want, got)))
+    if isinstance(want, float) and isinstance(got, float):
+        if want == got:
+            return 0
+        if rtol is not None and abs(got - want) <= rtol * abs(want):
+            return 1
+        raise AssertionError(f"{name}{path}: {want!r} vs {got!r}")
+    if type(want) is not type(got) or want != got:
+        raise AssertionError(f"{name}{path}: {want!r} vs {got!r}")
+    return 0
+
+
+def side_round(svc, method, params, tenants):
+    """One request per tenant, each on its own thread, released together
+    by a barrier: {tenant: (stripped response, ms, the response's
+    lifecycle phases in ms)}."""
+    import threading
+
+    out, errs = {}, []
+    barrier = threading.Barrier(len(tenants))
+
+    def run(tid):
+        try:
+            barrier.wait()
+            t0 = time.perf_counter()
+            r = getattr(svc, method)(params, tenant=tid)
+            out[tid] = (side_strip(r), (time.perf_counter() - t0) * 1e3,
+                        r["lifecycle"]["phases_ms"])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in tenants]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def side_services(device, lanes_list, **kw):
+    """One SimulatorService per batch_lanes value, on `device`."""
+    from kubernetes_autoscaler_tpu_torch.sidecar.server import SimulatorService
+
+    return [SimulatorService(batch_lanes=lanes,
+                             batch_window_ms=SIDE_WINDOW_MS,
+                             batch_window_max=SIDE_WINDOW_MAX,
+                             queue_depth=256, device=device, **kw)
+            for lanes in lanes_list]
+
+
+def side_kaux_payload(n_nodes):
+    """A constrained (KAUX) tenant: nodes in two zones, a resident that a
+    pending group's pod affinity points at, a zone-spread group."""
+    from kubernetes_autoscaler_tpu_torch.models.api import (
+        AffinityTerm,
+        TopologySpreadConstraint,
+    )
+    from kubernetes_autoscaler_tpu_torch.sidecar.wire import DeltaWriter
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    w = DeltaWriter()
+    for i in range(n_nodes):
+        w.upsert_node(build_test_node(f"k{i}", cpu_milli=4000, mem_mib=8192,
+                                      zone="ab"[i % 2]))
+    w.upsert_pod(build_test_pod("db", cpu_milli=100, mem_mib=64,
+                                labels={"app": "db"}, node_name="k1"))
+    for i in range(3 * n_nodes):
+        p = build_test_pod(f"w{i}", cpu_milli=1500, mem_mib=64,
+                           labels={"app": "w"}, owner_name="w-rs")
+        p.pod_affinity = [AffinityTerm(match_labels={"app": "db"},
+                                       topology_key=ZONE_KEY)]
+        w.upsert_pod(p)
+        p = build_test_pod(f"s{i}", cpu_milli=500, mem_mib=64,
+                           labels={"app": "s"}, owner_name="s-rs")
+        p.topology_spread = [TopologySpreadConstraint(
+            max_skew=1, topology_key=ZONE_KEY, match_labels={"app": "s"})]
+        w.upsert_pod(p)
+    return w.payload()
+
+
+def side_what_if(svc, tenant, n_nodes, rollout):
+    """The WhatIf request of the phase: bench.py's four variant kinds (the
+    server prepends the null lane and pads to a rung), `rollout` loops of a
+    quiet workload. Returns (request body, stripped report, ms)."""
+    body = json.dumps({
+        "node_groups": side_node_groups(), "max_new_nodes": SIDE_MAX_NEW,
+        "variants": [v.to_dict() for v in whatif_variants(5, n_nodes)[1:]],
+        "rollout": rollout, "workload": {"v": 1, "kind": "quiet"},
+    }).encode()
+    t0 = time.perf_counter()
+    rep = side_strip(svc.what_if(body, tenant=tenant))
+    return body, rep, (time.perf_counter() - t0) * 1e3
+
+
+def side_what_if_direct(svc, tenant, body):
+    """The same report from the port's whatif/ called directly on the
+    tenant's resident tensors, as the server's WhatIf builds them."""
+    from kubernetes_autoscaler_tpu_torch.ops.hostfetch import to_host
+    from kubernetes_autoscaler_tpu_torch.sidecar.server import SimParams
+    from kubernetes_autoscaler_tpu_torch.sidecar.shapes import rung
+    from kubernetes_autoscaler_tpu_torch.whatif import (
+        generator,
+        kernel,
+        report,
+        variants,
+    )
+
+    raw = json.loads(body)
+    params = SimParams(max_new_nodes=raw["max_new_nodes"],
+                       node_groups=raw["node_groups"])
+    ts = svc._tenant(tenant)
+    nt, gt, pt, _planes, _c = svc._tensors_with_constraints(ts)
+    groups, ids = svc._encode_groups(ts, params)
+    branch = variants.Branch(
+        nodes=nt, specs=gt, scheduled=pt, groups=groups,
+        limit_cap=np.minimum(to_host(groups.max_new, np.int64),
+                             np.int64(params.max_new_nodes)).astype(np.int32),
+        statics={"dims": svc.dims, "max_new_nodes": params.max_new_nodes,
+                 "max_pods_per_node": 128, "with_constraints": False},
+        meta={"source": "tenant", "tenant": tenant, "groups": ids})
+    vs = [variants.VariantSpec.from_dict(d) for d in raw["variants"]]
+    lanes = variants.build_lanes(branch, vs, pad_to=rung(len(vs) + 1, 4))
+    kw = dict(dims=svc.dims, max_new_nodes=params.max_new_nodes,
+              max_pods_per_node=128, strategy=params.strategy)
+    margs = (lanes.nodes, lanes.specs, lanes.scheduled, lanes.groups,
+             lanes.limit_cap)
+    decision, summary = kernel.multiverse_step(*margs, **kw)
+    wl = generator.WorkloadSpec.from_record(raw["workload"])
+    adds, fails = generator.generate_workload(
+        wl, raw["rollout"], int(lanes.specs.count.shape[1]),
+        int(lanes.nodes.valid.shape[1]))
+    adds_b, fails_b = generator.lane_workloads(lanes.variants, adds, fails)
+    traj = kernel.rollout_multiverse(*margs, lanes.thresholds, adds_b,
+                                     fails_b, **kw)
+    return report.build_report(lanes, summary=summary, decision=decision,
+                               traj=traj, workload=wl)
+
+
+def side_pct(rows):
+    return (f"p50 {pct(rows, 50)} p90 {pct(rows, 90)} ms over {len(rows)}"
+            if rows else "none")
+
+
+def sidecar_phase(card, dims, kernel, plain):
+    """Phase 18: the simulation sidecar serving a fleet on the card. Returns
+    (K1 launches in the timed ScaleUpSim rounds, K1 launches per batch,
+    the max abs err of K1 on a large lane's inputs, K1's times there)."""
+    from kubernetes_autoscaler_tpu_torch.ops import hostfetch
+    from kubernetes_autoscaler_tpu_torch.ops.autoscale_step import (
+        scale_down_sim_batch,
+        scale_up_sim_batch,
+    )
+    from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import build, pack_kernel
+    from kubernetes_autoscaler_tpu_torch.ops.schedule import (
+        filter_pack_inputs,
+        schedule_pending_on_existing,
+    )
+    from kubernetes_autoscaler_tpu_torch.sidecar import batch as b
+    from kubernetes_autoscaler_tpu_torch.sidecar.server import SimParams
+    from kubernetes_autoscaler_tpu_torch.sidecar.shapes import rung
+
+    k1 = pack_kernel.pack_groups_batched
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the merged chunks are the bytes one writer writes
+    small = list(side_world_calls(8, 60))
+    if side_payload(small, chunk=7) != side_payload(small, chunk=10 ** 9):
+        raise AssertionError("[sidecar] kad1_merge differs from one writer")
+    t0 = time.perf_counter()
+    large_payload = side_payload(side_world_calls(LOOP_NODES, LOOP_PODS))
+    large_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small_payload = side_payload(side_world_calls(SIDE_SMALL_NODES,
+                                                  SIDE_SMALL_PODS))
+    log(f"[sidecar] world payloads written: large {len(large_payload)} B "
+        f"({LOOP_NODES} nodes, {2 * LOOP_NODES} residents, {LOOP_PODS} "
+        f"pending) in {large_s} s, small {len(small_payload)} B "
+        f"({SIDE_SMALL_NODES} nodes, {SIDE_SMALL_PODS} pending) in "
+        f"{time.perf_counter() - t0} s")
+
+    svc, ser = side_services(DEVICE, (SIDE_LANES, 0))
+    large = [f"large{i}" for i in range(SIDE_LARGE)]
+    smalls = [f"small{i}" for i in range(SIDE_SMALL)]
+    tenants = large + smalls
+    apply_ms = {"world": [], "delta": []}
+    delta_bytes = []
+    for i, tid in enumerate(tenants):
+        world = large_payload if tid in large else small_payload
+        delta = side_tenant_delta(i, f"x{i}")
+        delta_bytes.append(len(delta))
+        for s in (svc, ser):
+            t0 = time.perf_counter()
+            ack = s.apply_delta(world, tenant=tid)
+            ms_world = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ack2 = s.apply_delta(delta, tenant=tid)
+            ms_delta = (time.perf_counter() - t0) * 1e3
+            if ack["error"] or ack2["error"] or ack2["version"] != 2:
+                raise AssertionError(f"[sidecar] ApplyDelta {tid}: {ack} "
+                                     f"{ack2}")
+            if s is svc:
+                apply_ms["world"].append((tid in large, ms_world))
+                apply_ms["delta"].append(ms_delta)
+    for cls in (True, False):
+        log(f"[sidecar] ApplyDelta of the {'large' if cls else 'small'} "
+            f"world: " + side_pct([m for c, m in apply_ms["world"]
+                                   if c == cls]) + f" ({card})")
+    log(f"[sidecar] ApplyDelta of a tenant's own delta ({min(delta_bytes)}-"
+        f"{max(delta_bytes)} B): {side_pct(apply_ms['delta'])} ({card})")
+
+    up = SimParams(max_new_nodes=SIDE_MAX_NEW, node_groups=side_node_groups())
+    down = SimParams(threshold=SIDE_THRESHOLD)
+    got = {}           # (step, kind, tenant) -> {tier: response}
+    ms = {}            # (tier, kind, class) -> [ms]
+    phases = {}        # (tier, kind) -> {lifecycle phase: [ms]}
+
+    def run(tier, s, step, kind, who, timed):
+        out = side_round(s, "scale_up_sim" if kind == "up" else
+                         "scale_down_sim", up if kind == "up" else down, who)
+        for tid, (resp, t, ph) in out.items():
+            got.setdefault((step, kind, tid), {})[tier] = resp
+            if timed:
+                cls = "large" if tid in large else "small"
+                ms.setdefault((tier, kind, cls), []).append(t)
+                for name, v in ph.items():
+                    phases.setdefault((tier, kind), {}).setdefault(
+                        name, []).append(v)
+        return out
+
+    for tier, s in (("batched", svc), ("serial", ser)):
+        for w in range(SIDE_WARM):
+            run(tier, s, f"warm{w}", "up", tenants, False)
+            run(tier, s, f"warm{w}", "down", tenants, False)
+
+    # the timed window of the batched service
+    h2d = svc.registry.counter("world_store_h2d_bytes_total")
+    h2d0, cache0 = h2d.total(), build.cache_size()
+    batches0 = svc._scheduler.batches
+    torch.cuda.synchronize()
+    hostfetch.reset_round_trips()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    for r in range(SIDE_UP_ROUNDS):
+        run("batched", svc, f"up{r}", "up", tenants, True)
+    up_s = time.perf_counter() - t0
+    up_batches = svc._scheduler.batches - batches0
+    up_launches = k1.launches
+    t0 = time.perf_counter()
+    for r in range(SIDE_DOWN_ROUNDS):
+        run("batched", svc, f"down{r}", "down", tenants, True)
+    down_s = time.perf_counter() - t0
+    batches = svc._scheduler.batches - batches0
+    trips = hostfetch.round_trips()
+    down_launches = k1.launches - up_launches
+    if h2d.total() != h2d0:
+        raise AssertionError(f"[sidecar] world h2d moved over the steady "
+                             f"rounds: {h2d.total() - h2d0} B")
+    if build.cache_size() != cache0:
+        raise AssertionError("[sidecar] the kernel build cache grew over the "
+                             "timed window")
+    if trips != batches:
+        raise AssertionError(f"[sidecar] {trips} fetches for {batches} "
+                             f"batches")
+    if up_launches == 0 or down_launches != 0:
+        raise AssertionError(f"[sidecar] K1 launches: {up_launches} over the "
+                             f"ScaleUpSim rounds, {down_launches} over the "
+                             f"ScaleDownSim rounds")
+    stats = svc.batch_stats()
+    log(f"[sidecar] batched: {SIDE_UP_ROUNDS} ScaleUpSim rounds of "
+        f"{len(tenants)} tenants in {up_s} s ({SIDE_UP_ROUNDS * len(tenants) / up_s} "
+        f"sims/s), {SIDE_DOWN_ROUNDS} ScaleDownSim rounds in {down_s} s "
+        f"({SIDE_DOWN_ROUNDS * len(tenants) / down_s} sims/s); {batches} "
+        f"batches ({up_batches} ScaleUpSim), {trips} fetches, occupancy p50 "
+        f"{stats['occupancy_p50']}, stack cache {stats['stack_cache']}; K1 "
+        f"{up_launches} launches over the ScaleUpSim rounds "
+        f"({up_launches / up_batches} a batch), 0 over ScaleDownSim; world "
+        f"h2d 0 B, build cache {cache0} libraries before and after ({card})")
+
+    t0 = time.perf_counter()
+    for r in range(SIDE_UP_ROUNDS):
+        run("serial", ser, f"up{r}", "up", tenants, True)
+    ser_up_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in range(SIDE_DOWN_ROUNDS):
+        run("serial", ser, f"down{r}", "down", tenants, True)
+    ser_down_s = time.perf_counter() - t0
+    log(f"[sidecar] serial: ScaleUpSim {SIDE_UP_ROUNDS * len(tenants) / ser_up_s} "
+        f"sims/s ({ser_up_s} s), ScaleDownSim "
+        f"{SIDE_DOWN_ROUNDS * len(tenants) / ser_down_s} sims/s "
+        f"({ser_down_s} s) ({card})")
+    for key in sorted(ms):
+        log(f"[sidecar] ms per RPC {key[0]} {key[1]} {key[2]}: "
+            f"{side_pct(ms[key])} ({card})")
+    for key in sorted(phases):
+        log(f"[sidecar] lifecycle phases {key[0]} {key[1]}, p50 ms: "
+            + json.dumps({k: pct(v, 50) for k, v in phases[key].items()})
+            + f" ({card})")
+    # the serial tier with one request at a time: the per-sim cost without
+    # eight threads contending for the interpreter and the stream
+    alone = {"large": [], "small": []}
+    for tid in tenants:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.setdefault(("serial-alone", "up", tid), {})["serial"] = \
+            side_strip(ser.scale_up_sim(up, tenant=tid))
+        alone["large" if tid in large else "small"].append(
+            (time.perf_counter() - t0) * 1e3)
+        got[("serial-alone", "up", tid)]["batched"] = \
+            got[(f"up{SIDE_UP_ROUNDS - 1}", "up", tid)]["batched"]
+    log(f"[sidecar] ms per RPC serial up, one request at a time: large "
+        f"{side_pct(alone['large'])}, small {side_pct(alone['small'])} "
+        f"({card})")
+    for tid in (large[0], smalls[0]):
+        ts = svc._tenant(tid)
+        log(f"[sidecar] class of {tid}: {ts.shape_class.key} (counts "
+            f"{ts.state.counts()} nodes/pods/groups)")
+
+    # a window with one member: padded to 4 lanes, lane 0 computed once
+    k1.launches = 0
+    run("batched", svc, "alone", "up", large[:1], False)
+    ratio = svc.registry.gauge("batch_occupancy_ratio").value(kind="up")
+    if ratio != 1 / SIDE_LANES or k1.launches != 2:
+        raise AssertionError(f"[sidecar] a lone member: occupancy ratio "
+                             f"{ratio}, K1 launches {k1.launches}")
+    run("serial", ser, "alone", "up", large[:1], False)
+
+    # a ninth tenant joins the large class
+    ninth = f"large{SIDE_LARGE}"
+    for s in (svc, ser):
+        s.apply_delta(large_payload, tenant=ninth)
+        s.apply_delta(side_tenant_delta(len(tenants), "x-ninth"),
+                      tenant=ninth)
+    run("batched", svc, "ninth", "up", large + [ninth], False)
+    run("serial", ser, "ninth", "up", large + [ninth], False)
+    recompiles = svc.batch_stats()["recompiles_per_new_tenant"]
+    if recompiles != 0 or (svc._tenant(ninth).shape_class
+                           != svc._tenant(large[0]).shape_class):
+        raise AssertionError(f"[sidecar] the ninth tenant: "
+                             f"recompiles_per_new_tenant {recompiles}")
+
+    # churn on one large tenant: its dirty sections upload, nothing else
+    ts = svc._tenant(large[0])
+    keys0 = dict(ts.dev_keys)
+    per0 = {t: h2d.value(tenant=t) for t in tenants}
+    churn = side_churn(LOOP_PODS)
+    t0 = time.perf_counter()
+    ack = svc.apply_delta(churn, tenant=large[0])
+    churn_ms = (time.perf_counter() - t0) * 1e3
+    ser.apply_delta(churn, tenant=large[0])
+    for kind in ("up", "down"):
+        run("batched", svc, "churn", kind, large, False)
+        run("serial", ser, "churn", kind, large, False)
+    dirty = [sec for sec in ("nodes", "groups", "pods")
+             if ts.dev_keys[sec] != keys0[sec]]
+    want_bytes = sum(int(v.nbytes) for sec in dirty
+                     for v in ts.export_np[sec].values())
+    moved = {t: h2d.value(tenant=t) - per0[t] for t in tenants}
+    if ack["error"] or moved[large[0]] != want_bytes or any(
+            v for t, v in moved.items() if t != large[0]):
+        raise AssertionError(f"[sidecar] churn h2d: {moved}, dirty sections "
+                             f"{dirty} hold {want_bytes} B")
+    log(f"[sidecar] churn delta of {2 * SIDE_CHURN} pod ops ({len(churn)} "
+        f"B) applied in {churn_ms} ms; world h2d {want_bytes} B, the dirty "
+        f"sections {dirty} of {large[0]} alone ({card})")
+
+    # every member's response is the serial service's
+    n = 0
+    for key, by_tier in sorted(got.items()):
+        if set(by_tier) != {"batched", "serial"}:
+            raise AssertionError(f"[sidecar] {key}: answered by {by_tier}")
+        compare_json(f"[sidecar] {key}", by_tier["serial"],
+                     by_tier["batched"])
+        n += 1
+    log(f"[sidecar] {n} batched responses equal the serial service's")
+
+    # the batched sims on the large lanes: no host read between lanes, one
+    # fetch; K1 on a large lane's own filter and options inputs
+    lanes = []
+    for tid in large:
+        tsi = svc._tenant(tid)
+        _ng, ids, _r, _d, ng_dev = svc._ng_np(tsi, up)
+        lanes.append(b.UpLane(nodes=tsi.dev_np["nodes"],
+                              groups=tsi.dev_np["groups"],
+                              pods=tsi.dev_np["pods"], ng=ng_dev, ids=ids))
+    stacked = b.stack_up_lanes(lanes)
+    nt, gt, pt, th = b.stack_down_lanes([
+        b.DownLane(nodes=ln.nodes, groups=ln.groups, pods=ln.pods,
+                   threshold=SIDE_THRESHOLD) for ln in lanes])
+    torch.cuda.synchronize()
+    hostfetch.reset_round_trips()
+    t0 = time.perf_counter()
+    with no_host_reads():
+        out = scale_up_sim_batch(*stacked, dims, SIDE_MAX_NEW, "least-waste")
+        fetch = hostfetch.fetch_pytree_async({
+            "best": out.best, "pods": out.scores.pods,
+            "fits": out.fits_existing.sum(-1, dtype=torch.int32)})
+    host = fetch.get()
+    up_batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with no_host_reads():
+        dn = scale_down_sim_batch(nt, gt, pt, th)
+        fetch = hostfetch.fetch_pytree_async({"drainable":
+                                              dn.removal.drainable})
+    host_dn = fetch.get()
+    down_batch_ms = (time.perf_counter() - t0) * 1e3
+    if hostfetch.round_trips() != 2:
+        raise AssertionError("[sidecar] the batched sims took more than one "
+                             "fetch each")
+    for i, tid in enumerate(large):
+        resp = got[("churn", "up", tid)]["batched"]
+        if resp["fits_existing"] != int(host["fits"][i]):
+            raise AssertionError(f"[sidecar] direct batch differs for {tid}")
+        valid = svc._tenant(tid).export_np["nodes"]["valid"].astype(bool)
+        if (np.nonzero(host_dn["drainable"][i] & valid)[0].tolist()
+                != got[("churn", "down", tid)]["batched"]["drainable"]):
+            raise AssertionError(f"[sidecar] direct batch drain differs for "
+                                 f"{tid}")
+    log(f"[sidecar] scale_up_sim_batch over the {SIDE_LARGE} large lanes "
+        f"{up_batch_ms} ms, scale_down_sim_batch {down_batch_ms} ms, each "
+        f"one fetch, no host read inside ({card})")
+    nt0 = b.node_tensors(lanes[0].nodes)
+    gr0 = b.nodegroup_tensors(lanes[0].ng)
+    gt0 = b.podgroup_tensors(lanes[0].groups)
+    pt0 = b.sched_tensors(lanes[0].pods)
+    filter_args = [x[None].contiguous() if i < 2 else x for i, x in
+                   enumerate(filter_pack_inputs(nt0, gt0, pt0))]
+    packed = schedule_pending_on_existing(nt0, gt0, pt0)
+    remaining = torch.clamp(gt0.count - packed.scheduled, min=0)
+    option_args, _ = option_pack_inputs(gt0.replace(count=remaining), gr0,
+                                        dims, SIDE_MAX_NEW)
+    err = max(check_pack("sidecar large-lane filter inputs", filter_args,
+                         kernel, plain),
+              check_pack("sidecar large-lane options inputs",
+                         list(option_args), kernel, plain))
+    times = {"filter": k1_times(filter_args, kernel, plain),
+             "options": k1_times(list(option_args), kernel, plain)}
+    for name, t in times.items():
+        log(f"[sidecar] K1 on a large lane's {name} inputs: {k1_line(t)} "
+            f"({card})")
+
+    # WhatIf on one large tenant, against the port's whatif/ called directly
+    body, rep, wi_ms = side_what_if(svc, large[1], LOOP_NODES, SIDE_WHATIF_T)
+    direct = side_what_if_direct(svc, large[1], body)
+    compare_json("[sidecar] WhatIf", side_strip(direct), rep)
+    log(f"[sidecar] WhatIf on {large[1]}: {rep['lanes']} lanes (the null "
+        f"lane and 4 variants, padded to {rung(rep['lanes'], 4)}), rollout "
+        f"{SIDE_WHATIF_T} loops, "
+        f"{wi_ms} ms; equal to whatif.multiverse_step and rollout_multiverse "
+        f"called directly ({card})")
+
+    # gRPC, where grpcio is installed; no device work depends on it
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        log("[sidecar] grpc: not installed")
+    else:
+        from kubernetes_autoscaler_tpu_torch.sidecar.server import (
+            SimulatorClient,
+            make_grpc_server,
+        )
+
+        server, port = make_grpc_server(svc, port=0)
+        server.start()
+        try:
+            params = {"max_new_nodes": SIDE_MAX_NEW,
+                      "node_groups": side_node_groups()}
+            for tid in large:
+                r = SimulatorClient(port, tenant=tid).scale_up_sim(**params)
+                compare_json(f"[sidecar] gRPC {tid}",
+                             got[("churn", "up", tid)]["batched"], r)
+            log(f"[sidecar] grpc: {len(large)} ScaleUpSim over "
+                f"localhost equal the in-process answers")
+        finally:
+            server.stop(None)
+
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    svc.close()
+    ser.close()
+    log(f"[sidecar] peak device memory allocated {peak_mib:.1f} MiB; phase "
+        f"{time.perf_counter() - t_phase} s ({card})")
+    return up_launches, up_launches / up_batches, err, times
+
+
+def sidecar_cpu_card_phase(card):
+    """Phase 19: 4 tenants of SIDE_CPU_CARD_NODES nodes in one class, the
+    same script on the CPU and on the card: ScaleUpSim and ScaleDownSim
+    batched, WhatIf with a rollout, and a constrained (KAUX) tenant's
+    ScaleUpSim and ScaleDownSim on the serial tier. Ids, ints and bools
+    equal, floats within rtol 1e-5, the chosen option the same. The shadow
+    audit re-runs one lane of each window serially: no divergence."""
+    from kubernetes_autoscaler_tpu_torch.sidecar.server import SimParams
+
+    nodes = SIDE_CPU_CARD_NODES
+    pods = LOOP_PODS * nodes // LOOP_NODES
+    payload = side_payload(side_world_calls(nodes, pods))
+    kaux = side_kaux_payload(16)
+    up_p = {"max_new_nodes": SIDE_MAX_NEW, "node_groups": side_node_groups()}
+    zone_ngs = [{"id": f"ng-{z}", "max_new": 8, "price": 1.0,
+                 "template": {"name": f"tmpl-{z}", "labels": {ZONE_KEY: z},
+                              "capacity": {"cpu": 4.0, "memory": 8 << 30,
+                                           "pods": 110}}} for z in "ab"]
+    tenants = [f"t{i}" for i in range(4)]
+    runs = {}
+    for device in ("cpu", DEVICE):
+        (svc,) = side_services(device, (SIDE_LANES,), shadow_audit=True)
+        for i, tid in enumerate(tenants):
+            svc.apply_delta(payload, tenant=tid)
+            svc.apply_delta(side_tenant_delta(i, f"x{i}"), tenant=tid)
+        svc.apply_delta(kaux, tenant="kaux")
+        r = {"up": side_round(svc, "scale_up_sim", SimParams(**up_p),
+                              tenants),
+             "down": side_round(svc, "scale_down_sim",
+                                SimParams(threshold=SIDE_THRESHOLD), tenants),
+             "kaux": side_round(svc, "scale_up_sim", SimParams(
+                 max_new_nodes=8, node_groups=zone_ngs), ["kaux"]),
+             "kaux-down": side_round(svc, "scale_down_sim", SimParams(
+                 threshold=0.6), ["kaux"])}
+        _b, r["whatif"], _ms = side_what_if(svc, tenants[0], nodes,
+                                            SIDE_WHATIF_T)
+        if not svc.audit_quiesce() or svc.audit_stats()["divergences"]:
+            raise AssertionError(f"[sidecar-cpu-card] shadow audit on "
+                                 f"{device}: {svc.audit_stats()}")
+        r["audit"] = svc.audit_stats()["checks"]
+        if svc._batchable(svc._tenant("kaux")):
+            raise AssertionError("[sidecar-cpu-card] the KAUX tenant batched")
+        runs[device] = r
+        svc.close()
+    near = 0
+    for kind in ("up", "down"):
+        for tid in tenants:
+            near += compare_json(f"[sidecar-cpu-card] {kind} {tid}",
+                                 runs["cpu"][kind][tid][0],
+                                 runs[DEVICE][kind][tid][0], rtol=1e-5)
+    for kind in ("kaux", "kaux-down"):
+        near += compare_json(f"[sidecar-cpu-card] {kind}",
+                             runs["cpu"][kind]["kaux"][0],
+                             runs[DEVICE][kind]["kaux"][0], rtol=1e-5)
+    near += compare_json("[sidecar-cpu-card] WhatIf", runs["cpu"]["whatif"],
+                         runs[DEVICE]["whatif"], rtol=1e-5)
+    log(f"[sidecar-cpu-card] {len(tenants)} tenants of {nodes} nodes and a "
+        f"KAUX tenant of 16: ScaleUpSim, ScaleDownSim and WhatIf equal on the "
+        f"CPU and the card (ids, ints, bools and chosen options exact; {near} "
+        f"floats differ within rtol 1e-5); shadow audit checks on the card "
+        f"{json.dumps(runs[DEVICE]['audit'])}, no divergence ({card})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2708,8 +3444,14 @@ def main() -> int:
     constrained_cpu_card_phase(dims, card)
     loop_constrained_phase(card)
     loop_constrained_cpu_card_phase(card)
+    # 18-19. the simulation sidecar: a fleet of tenants at full width,
+    # batched against serial; CPU against the card
+    side_launches, side_per_batch, err, side_times = sidecar_phase(
+        card, dims, k1, k1_plain)
+    k1_err = max(k1_err, err)
+    sidecar_cpu_card_phase(card)
 
-    # 18. result: `ms` is the kernel as launched from Python (CUDA events
+    # 20. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{
@@ -2730,6 +3472,12 @@ def main() -> int:
         "replay_launches": journal_launches["replay_launches"],
         "entry_launches": entry_launches,
         "whatif_launches": whatif_launches,
+        "sidecar_launches": side_launches,
+        "sidecar_launches_per_batch": side_per_batch,
+        "sidecar_filter_ms": side_times["filter"]["launch"],
+        "sidecar_filter_device_ms": side_times["filter"]["kernel"],
+        "sidecar_options_ms": side_times["options"]["launch"],
+        "sidecar_options_device_ms": side_times["options"]["kernel"],
     }, {
         "name": "pack_groups_wavefront",
         "route": "cuda",

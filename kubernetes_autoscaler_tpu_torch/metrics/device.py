@@ -417,6 +417,10 @@ class CompileCensus:
     steady/local work). PyTorch has no per-program cost analysis, so a
     variant carries no flops/bytes figures (ROADMAP A8)."""
 
+    # what a variant's compile is: growth of the kernel build cache (the
+    # sidecar's Statusz prints it beside the variant count)
+    mode = "build-cache"
+
     def __init__(self, registry=None):
         self.registry = registry
         self._table: dict[tuple, dict] = {}

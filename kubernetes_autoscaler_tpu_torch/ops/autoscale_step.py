@@ -9,7 +9,9 @@ The phased path — `scale_up_sim` (filter pack, with an optional wavefront
 plan, then every option's estimate and the expander's choice),
 `scale_down_sim` (eligibility and the drain sweep over every node) and
 `run_once_sim` (both on one snapshot) — is the live loop's oracle and the
-reference bench's scale-up measurement.
+reference bench's scale-up measurement. `scale_up_sim_batch` and
+`scale_down_sim_batch` run the first two over a leading tenant axis for the
+sidecar's coalesced windows, lane by lane.
 
 `run_once_fused` (the live default) runs three phases on the
 post-placement world, in order:
@@ -29,6 +31,7 @@ its plain version. The constrained pack is plain torch on both.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -124,6 +127,103 @@ def scale_down_sim(
     return ScaleDownSim(
         eligible=utilization.eligible_for_scale_down(nodes, threshold),
         removal=removal, utilization=utilization.node_utilization(nodes))
+
+
+def _map(fn, tree):
+    """`tree` with `fn` applied to every leaf (a tensor, or a numpy array
+    once fetched); None stays None."""
+    if tree is None:
+        return None
+    if not dataclasses.is_dataclass(tree):
+        return fn(tree)
+    return dataclasses.replace(tree, **{
+        f.name: _map(fn, getattr(tree, f.name))
+        for f in dataclasses.fields(tree)})
+
+
+def _stack(trees):
+    """Trees of one structure → one tree, every leaf stacked on axis 0."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return dataclasses.replace(first, **{
+        f.name: _stack([getattr(t, f.name) for t in trees])
+        for f in dataclasses.fields(first)})
+
+
+def _lane(tree, b: int):
+    """Lane b of a lane-stacked tree, on the device (views; a host index,
+    no device read) or fetched."""
+    return _map(lambda x: x[b], tree)
+
+
+def _lanes(n_lanes: int, members: int | None) -> int:
+    """How many leading lanes to compute: all of them, or the `members`
+    real lanes of a window padded by repeating lane 0."""
+    if members is None:
+        return n_lanes
+    if not 1 <= members <= n_lanes:
+        raise ValueError(f"members={members} outside 1..{n_lanes} lanes")
+    return members
+
+
+def scale_up_sim_batch(
+    nodes: NodeTensors,
+    specs: PodGroupTensors,
+    scheduled: ScheduledPodTensors,
+    groups: NodeGroupTensors,
+    dims: Dims,
+    max_new_nodes: int = 256,
+    strategy: str = "least-waste",
+    members: int | None = None,
+) -> ScaleUpSim:
+    """`scale_up_sim` over a leading tenant axis — the multi-cluster
+    serving dispatch. Every input tensor carries axis 0 of size B (one lane
+    per tenant world, stacked by sidecar/batch.py); the output is the SAME
+    tree with every leaf batched, so lane i is the serial `scale_up_sim`
+    on lane i's world by construction.
+
+    The lanes run one after another on views of the stacked tensors (a
+    ctypes kernel launch has no vmap): two pack-kernel launches per
+    computed lane, no host read between lanes, one tree for one fetch.
+    `members` = M < B says lanes M.. are padding that repeats lane 0 (as
+    sidecar/batch.pad_lanes builds them): they get lane 0's outputs
+    without being computed again.
+
+    The per-lane body is the unconstrained path (no wavefront plan, no
+    constraint planes): tenants with a constraint overlay are dispatched
+    serially by the sidecar instead of batched."""
+    b_all = nodes.cap.shape[0]
+    outs = [scale_up_sim(_lane(nodes, b), _lane(specs, b),
+                         _lane(scheduled, b), _lane(groups, b), dims,
+                         max_new_nodes, strategy)
+            for b in range(_lanes(b_all, members))]
+    return _stack(outs + [outs[0]] * (b_all - len(outs)))
+
+
+def scale_down_sim_batch(
+    nodes: NodeTensors,
+    specs: PodGroupTensors,
+    scheduled: ScheduledPodTensors,
+    thresholds: torch.Tensor,    # f32[B] per-tenant utilization threshold
+    max_pods_per_node: int = 128,
+    max_zones: int = 16,
+    members: int | None = None,
+) -> ScaleDownSim:
+    """`scale_down_sim` over a leading tenant axis, lane by lane as
+    `scale_up_sim_batch` runs (no pack-kernel launch: the drain sweep is
+    plain torch). The utilization threshold is a per-lane f32 tensor, so
+    tenants with different thresholds share one dispatch. `members` as in
+    `scale_up_sim_batch`: a padded lane would otherwise cost a whole
+    drain sweep."""
+    b_all = nodes.cap.shape[0]
+    outs = [scale_down_sim(_lane(nodes, b), _lane(specs, b),
+                           _lane(scheduled, b), thresholds[b],
+                           max_pods_per_node, max_zones=max_zones)
+            for b in range(_lanes(b_all, members))]
+    return _stack(outs + [outs[0]] * (b_all - len(outs)))
 
 
 def run_once_sim(

@@ -32,7 +32,6 @@ round trip.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,8 +46,11 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     _Tree,
 )
 from kubernetes_autoscaler_tpu_torch.ops import hostfetch, scoring
-from kubernetes_autoscaler_tpu_torch.ops.autoscale_step import (
+from kubernetes_autoscaler_tpu_torch.ops.autoscale_step import (  # noqa: F401 — variants.py takes _map from here
     FusedDecision,
+    _lane,
+    _map,
+    _stack,
     run_once_fused,
 )
 
@@ -85,36 +87,6 @@ class RolloutStep(_Tree):
     util_mean: torch.Tensor      # f32 mean utilization over valid nodes
     scaleup_cost: torch.Tensor   # f32 price of this step's expansion
     fleet_price: torch.Tensor    # f32 post-actuation fleet price rate
-
-
-def _map(fn, tree):
-    """`tree` with `fn` applied to every leaf (a tensor, or a numpy array
-    once fetched); None stays None."""
-    if tree is None:
-        return None
-    if not dataclasses.is_dataclass(tree):
-        return fn(tree)
-    return dataclasses.replace(tree, **{
-        f.name: _map(fn, getattr(tree, f.name))
-        for f in dataclasses.fields(tree)})
-
-
-def _stack(trees):
-    """Trees of one structure → one tree, every leaf stacked on axis 0."""
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    return dataclasses.replace(first, **{
-        f.name: _stack([getattr(t, f.name) for t in trees])
-        for f in dataclasses.fields(first)})
-
-
-def _lane(tree, b: int):
-    """Lane b of a lane-stacked tree, on the device (views; a host index,
-    no device read) or fetched."""
-    return _map(lambda x: x[b], tree)
 
 
 def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -46,9 +46,218 @@ MODULES = ['config/options', 'cloudprovider/provider', 'cloudprovider/test_provi
  'audit/__init__', 'audit/shadow', '__main__',
  'expander/grpc_transport', 'cloudprovider/external_grpc',
  'core/scaleup/async_groups', 'whatif/generator', 'whatif/report',
- 'sidecar/shapes']
+ 'sidecar/shapes', 'sidecar/wire', 'sidecar/lifecycle',
+ 'sidecar/admission', 'sidecar/conformance', 'sidecar/go_fixtures',
+ 'utils/certs', 'sidecar/server']
 
-ALLOWED = {'sidecar/shapes': ["-guarantee (`recompiles_per_new_tenant` gauge, "
+ALLOWED = {'sidecar/server': ['-"""The TPU simulation sidecar: multi-tenant gRPC service over '
+             'native snapshot state.',
+             '+"""The simulation sidecar: multi-tenant gRPC service over '
+             'native snapshot state.',
+             '+',
+             "+The port's copy of the reference package's sidecar/server.py: "
+             'the same',
+             "+service on PyTorch, with each tenant's world resident on "
+             '`device` (None =',
+             '+CUDA, raising without it; tests pass "cpu"). A batched dispatch '
+             'runs the',
+             "+tenants' lanes one after another "
+             '(ops/autoscale_step.scale_up_sim_batch),',
+             '+so "compiles" are growth of the kernel build cache '
+             '(ops/kernels/build).',
+             '+from kubernetes_autoscaler_tpu_torch.ops.hostfetch import (',
+             '+    fetch_pytree,',
+             '+    suppress_counting,',
+             '+    to_host,',
+             '+)',
+             '+',
+             '+',
+             '+def _fetch_serial(tree):',
+             '+    """A serial sim\'s outputs home in one packed fetch (a CUDA '
+             'tensor never',
+             "+    goes through np.asarray). Uncounted, as the reference's "
+             'np.asarray reads',
+             "+    are: the loop's round-trip meter sees only the batched "
+             'fetches."""',
+             '+    with suppress_counting():',
+             '+        return fetch_pytree(tree)',
+             '+',
+             '+',
+             '+def _verdicts(down):',
+             '+    """The ScaleDownSim fields a response reads: the drain '
+             "sweep's per-pod",
+             '+    planes (C x max_pods_per_node) stay on the device."""',
+             '+    return down.replace(removal=down.removal.replace(',
+             '+        has_blocker=None, n_moved=None, n_failed=None, '
+             'dest_node=None,',
+             '+        pod_slot=None, feas=None))',
+             '-                 shadow_audit: bool = False):',
+             '+                 shadow_audit: bool = False,',
+             '+                 device=None):',
+             '+        from kubernetes_autoscaler_tpu_torch.device import '
+             'resolve_device',
+             '+',
+             "+        # where every tenant's resident world and every sim "
+             'runs; below,',
+             '+        # `device` names the metrics module again, as '
+             'everywhere in this file',
+             '+        self.device = resolve_device(device)',
+             '+        from kubernetes_autoscaler_tpu_torch.metrics import '
+             'device',
+             '+',
+             '-        self.census = '
+             'device.CompileCensus(registry=self.registry,',
+             '-                                           sync_analysis=False)',
+             '+        self.census = '
+             'device.CompileCensus(registry=self.registry)',
+             '-            ms = device.memory_stats()',
+             "+            # the card's memory, and none for a service on the "
+             'CPU',
+             '+            ms = (device.memory_stats() if self.device.type == '
+             '"cuda"',
+             '+                  else None)',
+             '-        nt, gt, pt = ts.state.to_tensors(self.node_bucket, '
+             'self.group_bucket)',
+             '+        nt, gt, pt = ts.state.to_tensors(self.node_bucket, '
+             'self.group_bucket,',
+             '+                                         device=self.device)',
+             '-            self.dims, bucket=bucket,',
+             '+            self.dims, bucket=bucket, device=self.device,',
+             '+        out = _fetch_serial(out)',
+             '-        valid = np.asarray(nt.valid)',
+             '+        valid, out = _fetch_serial((nt.valid, _verdicts(out)))',
+             '-                np.asarray(groups.max_new, np.int64),',
+             '+                to_host(groups.max_new, np.int64),',
+             '-                "chunk": 32,',
+             '-                  chunk=st["chunk"], strategy=params.strategy)',
+             '+                  strategy=params.strategy)',
+             '-                g = int(np.asarray(lanes.specs.count).shape[1])',
+             '-                n = int(np.asarray(lanes.nodes.valid).shape[1])',
+             '+                g = int(lanes.specs.count.shape[1])',
+             '+                n = int(lanes.nodes.valid.shape[1])',
+             '-        Caller holds ts.lock."""',
+             '-        import jax.numpy as jnp',
+             '+        Caller holds ts.lock. Each upload is a blocking copy '
+             'from the',
+             "+        section's freshly exported arrays, so it has landed "
+             'before the',
+             '+        ticket that carries the lane is queued."""',
+             '+        import torch',
+             '-                ts.dev_np[section] = {k: jnp.asarray(v)',
+             '+                ts.dev_np[section] = {k: torch.as_tensor(v, '
+             'device=self.device)',
+             '-                help="XLA programs compiled by serving '
+             'dispatches").inc(grew)',
+             '+                help="Kernel libraries built by serving '
+             'dispatches").inc(grew)',
+             '-                label, jfn, cargs, ckw = census',
+             '-                self.census.record(label, jfn, cargs, ckw, '
+             'tenant=tenant)',
+             '+                label, _jfn, cargs, ckw = census',
+             '+                self.census.record(label, cargs, ckw, '
+             'tenant=tenant)',
+             '-        from kubernetes_autoscaler_tpu_torch.ops import '
+             'autoscale_step as a',
+             '-        from kubernetes_autoscaler_tpu_torch.whatif import '
+             'kernel as w',
+             '-',
+             '-        return sum(f._cache_size() for f in (',
+             '-            a.scale_up_sim, a.scale_down_sim,',
+             '-            a.scale_up_sim_batch, a.scale_down_sim_batch,',
+             '-            w.multiverse_step, w.rollout_fused, '
+             'w.rollout_multiverse))',
+             '+        # the port compiles nothing per shape: its only build '
+             'is a kernel',
+             '+        # library, loaded once per process',
+             '+        from kubernetes_autoscaler_tpu_torch.ops.kernels import '
+             'build',
+             '+',
+             '+        return build.cache_size()',
+             '-                help="XLA compiles triggered by the dispatch '
+             'that first "',
+             '+                help="Kernel builds triggered by the dispatch '
+             'that first "',
+             '-        import jax.numpy as jnp',
+             '+        import torch',
+             '-                                                 max_new_nodes, '
+             'strategy),',
+             '+                                                 max_new_nodes, '
+             'strategy,',
+             '+                                                 '
+             'members=len(tickets)),',
+             '-                    "fits": out.fits_existing.sum(-1),',
+             '-                    "remaining": out.remaining.sum(-1),',
+             '+                    "fits": out.fits_existing.sum(-1, '
+             'dtype=torch.int32),',
+             '+                    "remaining": out.remaining.sum(-1, '
+             'dtype=torch.int32),',
+             '-                th = jnp.asarray(',
+             '-                    [ln.threshold for ln in lanes_list], '
+             'jnp.float32)',
+             '+                th = torch.tensor([ln.threshold for ln in '
+             'lanes_list],',
+             '+                                  dtype=torch.float32, '
+             'device=self.device)',
+             '-                        nt, gt, pt, th, '
+             'max_zones=self.dims.max_zones),',
+             '+                        nt, gt, pt, th, '
+             'max_zones=self.dims.max_zones,',
+             '+                        members=len(tickets)),',
+             '-            help="Coalesced vmapped sim dispatches, by '
+             'kind").inc(kind=kind)',
+             '+            help="Coalesced batched sim dispatches, by '
+             'kind").inc(kind=kind)',
+             '+        import torch',
+             '+',
+             '-            host = {',
+             '-                "best": np.asarray(out.best)[None],',
+             '-                "node_count": '
+             'np.asarray(out.estimate.node_count)[None],',
+             '-                "pods": np.asarray(out.scores.pods)[None],',
+             '-                "waste": np.asarray(out.scores.waste)[None],',
+             '-                "price": np.asarray(out.scores.price)[None],',
+             '-                "valid": np.asarray(out.scores.valid)[None],',
+             '-                "fits": '
+             'np.asarray(out.fits_existing.sum(-1))[None],',
+             '-                "remaining": '
+             'np.asarray(out.remaining.sum(-1))[None],',
+             '-            }',
+             '+            host = _fetch_serial({',
+             '+                "best": out.best[None],',
+             '+                "node_count": out.estimate.node_count[None],',
+             '+                "pods": out.scores.pods[None],',
+             '+                "waste": out.scores.waste[None],',
+             '+                "price": out.scores.price[None],',
+             '+                "valid": out.scores.valid[None],',
+             '+                "fits": out.fits_existing.sum(-1, '
+             'dtype=torch.int32)[None],',
+             '+                "remaining": out.remaining.sum(-1, '
+             'dtype=torch.int32)[None],',
+             '+            })',
+             '-        host = {',
+             '-            "eligible": np.asarray(out.eligible)[None],',
+             '-            "drainable": '
+             'np.asarray(out.removal.drainable)[None],',
+             '-            "util": np.asarray(out.utilization)[None],',
+             '-        }',
+             '+        host = _fetch_serial({',
+             '+            "eligible": out.eligible[None],',
+             '+            "drainable": out.removal.drainable[None],',
+             '+            "util": out.utilization[None],',
+             '+        })',
+             '-                         "jax.profiler.trace capture into this '
+             'directory, "',
+             '+                         "torch.profiler capture into this '
+             'directory, "',
+             '+    ap.add_argument("--device", choices=("cpu", "cuda"), '
+             'default=None,',
+             '+                    help="the device every tenant\'s world and '
+             'every sim "',
+             '+                         "runs on (default: cuda)")',
+             '-                               shadow_audit=args.shadow_audit)',
+             '+                               shadow_audit=args.shadow_audit,',
+             '+                               device=args.device)'],
+           'sidecar/shapes': ["-guarantee (`recompiles_per_new_tenant` gauge, "
                             "CI-asserted like PR 2's",
                             '-`steady_state_recompiles`) achievable at all.',
                             '+guarantee (`recompiles_per_new_tenant` gauge, '

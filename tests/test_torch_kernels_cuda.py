@@ -189,3 +189,75 @@ def test_wavefront_kernel_refuses_what_it_cannot_schedule(cuda):
         "device memory"
     with pytest.raises(RuntimeError, match="CUDA error"):
         wavefront_kernel.config(64, 240_000, 8, 4, cluster=16)
+
+
+@pytest.mark.cuda
+def test_pack_kernel_on_sidecar_batched_inputs(cuda):
+    """K1 on what a batched ScaleUpSim hands it: two tenants' worlds decoded
+    by the codec, resident at their shape class (N=1,024), stacked as the
+    sidecar stacks a window, and on each lane the filter arguments (B=1)
+    and the option arguments (B=node groups, max_new_nodes bins)."""
+    from kubernetes_autoscaler_tpu_torch.ops.autoscale_step import _lane
+    from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
+    from kubernetes_autoscaler_tpu_torch.ops.schedule import (
+        filter_pack_inputs,
+        schedule_pending_on_existing,
+    )
+    from kubernetes_autoscaler_tpu_torch.sidecar import batch
+    from kubernetes_autoscaler_tpu_torch.sidecar.server import (
+        SimParams,
+        SimulatorService,
+    )
+    from kubernetes_autoscaler_tpu_torch.sidecar.wire import DeltaWriter
+    from kubernetes_autoscaler_tpu_torch.utils.testing import (
+        build_test_node,
+        build_test_pod,
+    )
+
+    mib = 1024 * 1024
+    params = SimParams(max_new_nodes=64, node_groups=[
+        {"id": f"ng{c}", "max_new": 32, "price": 1.0 + c,
+         "template": {"name": f"t{c}", "capacity": {
+             "cpu": 4.0 * c, "memory": 8192 * c * mib, "pods": 110}}}
+        for c in (1, 2, 4)])
+    svc = SimulatorService(device=cuda)
+    lanes = []
+    try:
+        for t in range(2):
+            w = DeltaWriter()
+            for i in range(600 + 100 * t):
+                w.upsert_node(build_test_node(
+                    f"n{i}", cpu_milli=(4000, 8000, 16000)[i % 3],
+                    mem_mib=16384))
+                w.upsert_pod(build_test_pod(
+                    f"r{i}", cpu_milli=1500, mem_mib=1024,
+                    owner_name=f"rs{i % 7}", node_name=f"n{i}"), movable=True)
+            for i in range(3000):
+                w.upsert_pod(build_test_pod(
+                    f"p{i}", cpu_milli=250 * (1 + i % 5), mem_mib=512,
+                    owner_name=f"prs{(i + t) % 25}"))
+            assert svc.apply_delta(w.payload(), tenant=f"t{t}")["error"] == ""
+            ts = svc._tenant(f"t{t}")
+            with ts.lock:
+                nodes, groups, pods = svc._export_dev(ts)
+            _ng, ids, _r, _d, ng_dev = svc._ng_np(ts, params)
+            lanes.append(batch.UpLane(nodes=nodes, groups=groups, pods=pods,
+                                      ng=ng_dev, ids=ids))
+        nt, gt, pt, gr = batch.stack_up_lanes(lanes)
+        assert nt.n == 2 and nt.cap.shape[1] == 1024
+        for b in range(2):
+            n1, g1, p1, r1 = (_lane(x, b) for x in (nt, gt, pt, gr))
+            filt = [x[None].contiguous() if i < 2 else x for i, x in
+                    enumerate(filter_pack_inputs(n1, g1, p1))]
+            packed = schedule_pending_on_existing(n1, g1, p1)
+            rest = g1.replace(count=torch.clamp(g1.count - packed.scheduled,
+                                                min=0))
+            opts, _ = option_pack_inputs(rest, r1, svc.dims, 64)
+            for name, args in (("filter", filt), ("options", list(opts))):
+                want = pack_kernel.pack_groups_batched_plain(*args)
+                got = pack_kernel.pack_groups_batched(*args)
+                for field in ("placed", "scheduled", "free_after"):
+                    assert torch.equal(getattr(got, field),
+                                       getattr(want, field)), (b, name, field)
+    finally:
+        svc.close()
