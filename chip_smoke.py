@@ -9,8 +9,9 @@ its own failure:
   1. device     the card's name and power limit (nvidia-smi); no CUDA → exit 1
   2. build      every CUDA source of the port, built with nvcc in parallel,
                 and the native confirmation's host library
-  3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu) against its plain
-                PyTorch version on the card, byte for byte, on seeded cases
+  3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu, the VPA scatter
+                histogram.cu) against its plain PyTorch version on the card,
+                byte for byte, on seeded cases
   4. main       `run_once_fused` on the bench world (5,000 nodes, 50,000
                 pending pods in 25 groups, 40,000 residents, 20 node groups):
                 step and phase times, launches per step, peak memory,
@@ -129,7 +130,27 @@ its own failure:
                 (the serial tier) on the CPU and on the card, the shadow
                 audit on: ids, ints, bools and chosen options equal, floats
                 within rtol 1e-5, no audit divergence
- 20. result     the kernels line, the card line, and the last line
+ 20. vpa        the VPA recommender on the card at the upstream defaults
+                (--recommender-interval=1m, --history-length=8d,
+                --history-resolution=1h, 24 h half-lives) over 10,000 VPA
+                objects of 5 pods x 2 containers (20,000 aggregates): the
+                history (192 hourly points an aggregate) through
+                PrometheusHistoryProvider -> feed_history, 10 RunOnce steps a
+                minute apart (feed of 100,000 samples, 1 % OOM, recommend of
+                every VPA; times split into decay, the feed's host loop and
+                device scatter, the percentiles with their fetches and the
+                host assembly; fetches a step), the updater over 50,000 pods,
+                a checkpoint saved and loaded (bytes, times), peak memory.
+                Asserted: every VPA recommended, the target monotone in the
+                workload's usage (a memory target with OOMs within the OOM
+                bump and one bucket of every higher level's), the checkpoint round trip byte-equal, the
+                scatter kernel byte-equal to its plain version on the path's
+                inputs (and its times there), 6 fetches a step
+ 21. vpa-cpu-card  the same script on the CPU: the banks byte-equal after
+                the history and every step, every recommendation equal, the
+                updater's decisions equal, each side's checkpoint loads on
+                the other byte-equal
+ 22. result     the kernels line, the card line, and the last line
                 {"ok": true, "device": {...}}
 
 Imports nothing of JAX and nothing of the JAX package: the worlds are built
@@ -139,6 +160,7 @@ and encoded by the port's own object model and encoder.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -147,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -2815,8 +2838,6 @@ def side_round(svc, method, params, tenants):
     """One request per tenant, each on its own thread, released together
     by a barrier: {tenant: (stripped response, ms, the response's
     lifecycle phases in ms)}."""
-    import threading
-
     out, errs = {}, []
     barrier = threading.Barrier(len(tenants))
 
@@ -3352,6 +3373,530 @@ def sidecar_cpu_card_phase(card):
         f"{json.dumps(runs[DEVICE]['audit'])}, no divergence ({card})")
 
 
+# ---------------------------------------------------------------- the VPA
+
+# The upstream recommender's documented defaults (vertical-pod-autoscaler,
+# pkg/recommender/main.go: --recommender-interval=1m, --history-length=8d,
+# --history-resolution=1h) with histogram.py's 24 h half-lives, on a cluster
+# of VPA_OBJECTS VPA objects, each targeting a workload of VPA_PODS pods with
+# the containers VPA_CONTAINERS: 50,000 pods, 100,000 containers, 20,000
+# aggregates.
+VPA_OBJECTS = 10_000
+VPA_PODS = 5
+VPA_CONTAINERS = ("app", "sidecar")
+VPA_SIDECAR_SHARE = 0.25      # a sidecar's usage as a share of its app's
+VPA_HISTORY_POINTS = 192      # --history-length=8d at --history-resolution=1h
+VPA_HISTORY_STEP_S = 3600.0
+VPA_INTERVAL_S = 60.0         # --recommender-interval=1m
+VPA_STEPS = 10                # timed RunOnce steps
+VPA_OOM_SHARE = 0.01          # a step's samples marked OOM
+VPA_SEED = 0
+VPA_NOW = 1_700_000_000.0     # the history's end, in epoch seconds
+VPA_LIMIT_MS = 6000.0         # RunOnce p90: a tenth of the 1 min interval
+
+
+class VpaScript:
+    """The [vpa] cluster, made from `seed`: each workload has a CPU and a
+    memory level, log-uniform in [0.05, 4] cores and [64 MiB, 8 GiB] (its
+    sidecar at VPA_SIDECAR_SHARE of them), times a log-normal noise pattern
+    per (time, pod slot, container) that every workload shares, so that the
+    target is monotone in the level by construction; VPA_OOM_SHARE of each
+    step's samples are OOMs. The step samples, the VPAs and the pods are
+    built once and fed to every run."""
+
+    def __init__(self, n_objects=VPA_OBJECTS, steps=VPA_STEPS, seed=VPA_SEED):
+        from kubernetes_autoscaler_tpu_torch.vpa import model, updater
+
+        rng = np.random.default_rng(seed)
+        self.n, self.steps = n_objects, steps
+        share = np.asarray([1.0, VPA_SIDECAR_SHARE])
+        self.cpu = np.exp(rng.uniform(np.log(0.05), np.log(4.0),
+                                      n_objects))[:, None] * share
+        self.mem = np.exp(rng.uniform(np.log(64 * 2**20), np.log(8 * 2**30),
+                                      n_objects))[:, None] * share
+        self.hist_cpu = rng.lognormal(0, 0.3, (VPA_HISTORY_POINTS, 2))
+        self.hist_mem = rng.lognormal(0, 0.2, (VPA_HISTORY_POINTS, 2))
+        step_cpu = rng.lognormal(0, 0.3, (steps, VPA_PODS, 2))
+        step_mem = rng.lognormal(0, 0.2, (steps, VPA_PODS, 2))
+        self.oom = rng.random((steps, n_objects, VPA_PODS, 2)) < VPA_OOM_SHARE
+        self.samples = []
+        for k in range(steps):
+            now = self.now(k)
+            cpu = (self.cpu[:, None, :] * step_cpu[k][None]).tolist()
+            mem = (self.mem[:, None, :] * step_mem[k][None]).tolist()
+            oom = self.oom[k].tolist()
+            self.samples.append([model.ContainerUsageSample(
+                namespace="default", pod_name=f"w{w}-{p}",
+                container_name=c, owner_name=f"w{w}",
+                cpu_cores=cpu[w][p][i], memory_bytes=mem[w][p][i],
+                is_oom=oom[w][p][i], timestamp=now)
+                for w in range(n_objects) for p in range(VPA_PODS)
+                for i, c in enumerate(VPA_CONTAINERS)])
+        self.targets = {f"w{w}": list(VPA_CONTAINERS) for w in range(n_objects)}
+        req = rng.lognormal(0, 0.5, (n_objects, VPA_PODS, 2)).tolist()
+        self.pods = [updater.PodView(
+            name=f"w{w}-{p}", namespace="default", owner_name=f"w{w}",
+            containers={c: {"cpu": float(self.cpu[w, i] * req[w][p][i]),
+                            "memory": float(self.mem[w, i] * req[w][p][i])}
+                        for i, c in enumerate(VPA_CONTAINERS)},
+            start_time=VPA_NOW - 86400.0, replicas_of_owner=VPA_PODS)
+            for w in range(n_objects) for p in range(VPA_PODS)]
+
+    @staticmethod
+    def now(k: int) -> float:
+        return VPA_NOW + VPA_INTERVAL_S * (k + 1)
+
+    def vpas(self):
+        from kubernetes_autoscaler_tpu_torch.vpa import model
+
+        return [model.VerticalPodAutoscaler(name=f"v{w}", target_name=f"w{w}")
+                for w in range(self.n)]
+
+    def query_fn(self):
+        """A Prometheus stand-in answering the provider's two range queries:
+        one series per aggregate (its workload's first pod), hourly points
+        over the last 8 days. Built before the clock starts."""
+        ts = (VPA_NOW - VPA_HISTORY_STEP_S
+              * np.arange(VPA_HISTORY_POINTS)[::-1]).tolist()
+        answers = {}
+        for resource, level, noise in (("cpu", self.cpu, self.hist_cpu),
+                                       ("memory", self.mem, self.hist_mem)):
+            answers[resource] = [
+                {"metric": {"namespace": "default", "pod": f"w{w}-0",
+                            "container": c},
+                 "values": list(zip(ts, (level[w, i] * noise[:, i]).tolist()))}
+                for w in range(self.n) for i, c in enumerate(VPA_CONTAINERS)]
+
+        def query(q, start, end):
+            return answers["cpu" if "cpu" in q else "memory"]
+
+        return query
+
+
+class VpaClock:
+    """Per-instance wrappers around a recommender's two banks: the host
+    time (each call ended by a synchronize) of the decays, the scatters and
+    the percentiles, and the device-to-host reads made by the percentiles."""
+
+    def __init__(self, rec, sync):
+        from kubernetes_autoscaler_tpu_torch.vpa import histogram
+
+        self.ms = {"decay": 0.0, "scatter": 0.0, "percentiles": 0.0}
+        self.fetches = 0
+        self._hist = histogram
+        self._to_host = histogram.to_host
+        for bank in (rec.cpu, rec.memory):
+            for meth, key in (("decay_to", "decay"), ("add_samples", "scatter"),
+                              ("percentile", "percentiles")):
+                setattr(bank, meth, self._timed(getattr(bank, meth), key, sync))
+
+    def _timed(self, fn, key, sync):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            self.ms[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def __enter__(self):
+        def counted(x, dtype=None):
+            self.fetches += 1
+            return self._to_host(x, dtype)
+        self._hist.to_host = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.to_host = self._to_host
+
+    def take(self) -> dict:
+        out = dict(self.ms, fetches=self.fetches)
+        self.ms = dict.fromkeys(self.ms, 0.0)
+        self.fetches = 0
+        return out
+
+
+def vpa_snapshot(rec):
+    return tuple(getattr(getattr(rec, b), f).clone()
+                 for b in ("cpu", "memory") for f in ("weights", "total"))
+
+
+def vpa_recs(vpas):
+    import dataclasses
+
+    return [[dataclasses.asdict(r) for r in v.recommendation] for v in vpas]
+
+
+def vpa_run(device, script, capture=None):
+    """The [vpa] script on `device`: the history through the Prometheus
+    provider, `script.steps` RunOnce steps (feed, recommend), the updater
+    over every pod, a checkpoint saved and loaded. Returns its times,
+    counts, the banks after the history and after every step, every step's
+    recommendations, the updater's decisions and the checkpoint's path.
+    With `capture`, the scatter's inputs of its first call (the history's
+    CPU bank, moved to the host once the history is timed) and of the last
+    step's memory bank go there, for [kernels]: two device clones of a bank
+    in the timed run, no other scatter wrapped in more than a check."""
+    from kubernetes_autoscaler_tpu_torch.vpa import (
+        checkpoint,
+        histogram,
+        history,
+        recommender,
+        updater,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    scatter = histogram.scatter_add_ordered
+    last_step = []          # set just before the last step
+    if capture is not None:
+        def capturing(weights, total, agg, bucket, w):
+            if not capture or (last_step and weights is rec.memory.weights):
+                capture.append([weights.clone(), total.clone(), agg, bucket,
+                                w])
+            return scatter(weights, total, agg, bucket, w)
+        histogram.scatter_add_ordered = capturing
+    out = {"snap": [], "recs": []}
+    try:
+        rec = recommender.Recommender(device=device)
+        clock = VpaClock(rec, sync)
+        query = script.query_fn()
+        prov = history.PrometheusHistoryProvider(
+            query_fn=query, pod_owner=lambda ns, pod: pod.rsplit("-", 1)[0])
+        with clock:
+            t0 = time.perf_counter()
+            n = prov.load_into(rec, now=VPA_NOW)
+            sync()
+            out["history_ms"] = (time.perf_counter() - t0) * 1e3
+            out["history"] = clock.take()
+            out["history_samples"] = n
+            if capture:
+                capture[0] = [a.cpu() for a in capture[0]]
+            out["snap"].append(vpa_snapshot(rec))
+            vpas = script.vpas()
+            out["steps"] = []
+            for k in range(script.steps):
+                now = script.now(k)
+                if k == script.steps - 1:
+                    last_step.append(True)
+                t0 = time.perf_counter()
+                rec.feed(script.samples[k], now=now)
+                sync()
+                t1 = time.perf_counter()
+                rec.recommend(vpas, script.targets, now=now)
+                t2 = time.perf_counter()
+                st = clock.take()
+                st.update(feed=(t1 - t0) * 1e3, recommend=(t2 - t1) * 1e3,
+                          run_once=(t2 - t0) * 1e3)
+                out["steps"].append(st)
+                out["snap"].append(vpa_snapshot(rec))
+                out["recs"].append(vpa_recs(vpas))
+        evicted = []
+        upd = updater.Updater(evict=lambda p: evicted.append(p.name))
+        t0 = time.perf_counter()
+        acted = upd.run_once(vpas, script.pods, now=script.now(script.steps))
+        out["updater_ms"] = (time.perf_counter() - t0) * 1e3
+        out["decisions"] = [(d.pod.name, d.priority, d.outside_bounds,
+                             d.in_place) for d in acted]
+        out["evicted"] = evicted
+        out["dir"] = tempfile.mkdtemp(prefix="vpa-ckpt-")
+        out["ckpt"] = os.path.join(out["dir"], "checkpoint.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(rec, out["ckpt"], script.now(script.steps))
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["ckpt_bytes"] = os.path.getsize(out["ckpt"])
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_checkpoint(out["ckpt"], device=device)
+        sync()
+        out["load_ms"] = (time.perf_counter() - t0) * 1e3
+        if loaded._index != rec._index or not all(
+                torch.equal(a, b) for a, b in zip(vpa_snapshot(loaded),
+                                                   vpa_snapshot(rec))):
+            raise AssertionError(f"[vpa] the checkpoint round trip on "
+                                 f"{device} is not byte-equal")
+        out["rec"], out["vpas"] = rec, vpas
+    finally:
+        histogram.scatter_add_ordered = scatter
+    return out
+
+
+def vpa_monotone(script, vpas):
+    """Each container's target against its workload's level. The workloads
+    share one noise pattern, so a workload of lower level has every sample
+    at most its counterpart's: the CPU target, and the memory target among
+    workloads that had no OOM, are monotone in the level. An OOM sample is
+    bumped by OOM_BUMP_RATIO, so over every workload a memory target is at
+    most OOM_BUMP_RATIO times one bucket's ratio (the rounding to a bucket
+    end) the target of any workload of higher level. Returns the pairs that
+    break either."""
+    from kubernetes_autoscaler_tpu_torch.vpa import histogram, recommender
+
+    slack = recommender.OOM_BUMP_RATIO * histogram.MEMORY_SCHEME.ratio
+    bad = []
+    for i, c in enumerate(VPA_CONTAINERS):
+        no_oom = ~script.oom[..., i].any(axis=(0, 2))
+        for res, level in (("cpu", script.cpu[:, i]),
+                           ("memory", script.mem[:, i])):
+            order = np.argsort(level, kind="stable")
+            got = np.asarray([next(r.target[res]
+                                   for r in vpas[w].recommendation
+                                   if r.container_name == c) for w in order])
+            keep = no_oom[order] if res == "memory" else np.ones(len(got), bool)
+            w_k, g_k = order[keep], got[keep]
+            bad += [(c, res, int(w_k[j]), g_k[j], g_k[j + 1])
+                    for j in range(len(g_k) - 1) if g_k[j + 1] < g_k[j]]
+            if res == "memory":
+                # the least target over each workload's higher levels
+                above = np.minimum.accumulate(got[::-1])[::-1][1:]
+                bad += [(c, "memory with OOMs", int(order[j]), got[j],
+                         slack * above[j])
+                        for j in np.flatnonzero(got[:-1] > slack * above)]
+    return bad
+
+
+def hist_bound(args) -> tuple[float, str]:
+    """(bound ms, 'bytes') of one scatter on these inputs: each sample read
+    once (aggregate, bucket, weight: 12 B) and each touched bin and total
+    read and written once (8 B each); the adds (two a sample) are far below
+    the card's rate."""
+    weights, _total, agg, bucket, w = args
+    flat = agg.long() * weights.shape[1] + bucket.long()
+    touched = int(torch.unique(flat).numel()) + int(torch.unique(agg).numel())
+    t_bytes = (agg.numel() * 12 + touched * 8) / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * agg.numel() / H100_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_hist(name, args, kernel, plain) -> float:
+    """The scatter kernel on card copies of `args` against the plain version
+    on CPU copies: every bin and total byte-equal. Returns the max abs
+    difference."""
+    cpu = [a.detach().cpu().clone() for a in args]
+    dev = [a.detach().to(DEVICE).clone() for a in args]
+    plain(*cpu)
+    kernel(*dev)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, field in ((0, "weights"), (1, "total")):
+        got = dev[i].cpu()
+        err = max(err, float((got.double() - cpu[i].double()).abs().max()))
+        if got.numpy().tobytes() != cpu[i].numpy().tobytes():
+            raise AssertionError(f"{name}: {field} differs from the plain "
+                                 f"version (max abs {err})")
+    log(f"[kernels] scatter_add_ordered == plain: {name} (A="
+        f"{args[0].shape[0]} B={args[0].shape[1]} n={args[2].numel()})")
+    return err
+
+
+def hist_times(args, kernel, plain) -> dict:
+    """The scatter's times on `args`: the wrapper as launched from Python
+    (the stable sort and the launch), the kernel's device time with the
+    order made beforehand, the sort's, the plain version's on the CPU (host
+    clock), and the library call on the card: `index_add_` on the bins and
+    on the totals, atomic, whose order of summation is not fixed."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import histogram_kernel
+
+    weights, total, agg, bucket, w = [a.to(DEVICE).clone() for a in args]
+    sorted_agg, order = torch.sort(agg, stable=True)
+    flat = agg.long() * weights.shape[1] + bucket.long()
+    agg_l = agg.long()
+    t = {"launch": cuda_ms(lambda: kernel(weights, total, agg, bucket, w),
+                           REPS),
+         "kernel": cuda_ms(lambda: histogram_kernel.launch(
+             sorted_agg, order, bucket, w, weights, total), REPS, hold=True),
+         "sort": cuda_ms(lambda: torch.sort(agg, stable=True), REPS,
+                         hold=True),
+         "library": cuda_ms(lambda: (weights.view(-1).index_add_(0, flat, w),
+                                     total.index_add_(0, agg_l, w)), REPS)}
+    cpu = [a.cpu().clone() for a in args]
+    plain_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        plain(*cpu)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    t["plain"] = statistics.median(plain_ms)
+    t["bound"], t["bound_by"] = hist_bound(args)
+    return t
+
+
+def plain_route_probe(args) -> str:
+    """Whether a plain route on the card sums in sample order: a stable
+    sort of the flat bin index followed by `index_put_(accumulate=True)`
+    (sort-based on CUDA), and the atomic `index_add_`, each against the
+    CPU's order on the same inputs. Returns a line for the log."""
+    weights, total, agg, bucket, w = args
+    want = weights.cpu().clone()
+    want.view(-1).index_add_(0, agg.cpu().long() * want.shape[1]
+                             + bucket.cpu().long(), w.cpu())
+    flat = (agg.long() * weights.shape[1] + bucket.long()).to(DEVICE)
+    out = []
+    for route in ("sort + index_put_(accumulate=True)", "index_add_"):
+        got = weights.to(DEVICE).clone()
+        if route == "index_add_":
+            got.view(-1).index_add_(0, flat, w.to(DEVICE))
+        else:
+            keys, perm = torch.sort(flat, stable=True)
+            got.view(-1).index_put_((keys,), w.to(DEVICE)[perm],
+                                    accumulate=True)
+        diff = int((got.cpu().view(torch.int32)
+                    != want.view(torch.int32)).sum())
+        out.append(f"{route}: {diff} of {want.numel()} bins differ")
+    return "; ".join(out)
+
+
+def vpa_phase(card, kernel, plain):
+    """Phase 20: the recommender at a large cluster's scale on the card.
+    Returns (the card run, the scatter's launches on the path, its kernels
+    line fields, its max abs err)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import histogram_kernel
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    script = VpaScript(VPA_OBJECTS, VPA_STEPS)
+    log(f"[vpa] cluster: {script.n} VPA objects, {script.n * VPA_PODS} pods, "
+        f"{script.n * VPA_PODS * len(VPA_CONTAINERS)} containers, "
+        f"{script.n * len(VPA_CONTAINERS)} aggregates; history "
+        f"{VPA_HISTORY_POINTS} points an aggregate at "
+        f"{VPA_HISTORY_STEP_S:g} s; {script.steps} RunOnce steps "
+        f"{VPA_INTERVAL_S:g} s apart (script built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    # what the process carries into the phase's host loops
+    log(f"[vpa] process: {threading.active_count()} threads, "
+        f"{len(gc.get_objects())} objects the collector tracks")
+    torch.cuda.reset_peak_memory_stats()
+    capture = []
+    histogram_kernel.scatter_add_ordered.launches = 0
+    run = vpa_run(DEVICE, script, capture)
+    launches = histogram_kernel.scatter_add_ordered.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    h = run["history"]
+    log(f"[vpa] history: {run['history_samples']} samples through "
+        f"PrometheusHistoryProvider -> feed_history in {run['history_ms']} ms: "
+        f"device (bucket lookup and scatter, synchronized) {h['scatter']} ms, "
+        f"decay {h['decay']} ms, host "
+        f"{run['history_ms'] - h['scatter'] - h['decay']} ms")
+    steps = run["steps"]
+    ro = [s["run_once"] for s in steps]
+    rows = {"decay": [s["decay"] for s in steps],
+            "feed host loop": [s["feed"] - s["decay"] - s["scatter"]
+                               for s in steps],
+            "feed device scatter": [s["scatter"] for s in steps],
+            "recommend percentiles": [s["percentiles"] for s in steps],
+            "recommend host assembly": [s["recommend"] - s["percentiles"]
+                                        for s in steps]}
+    log(f"[vpa] RunOnce ms over {len(ro)} steps (feed of "
+        f"{len(script.samples[0])} samples, recommend of {script.n} VPAs): "
+        f"p50 {pct(ro, 50)} p90 {pct(ro, 90)}; limit p90 <= {VPA_LIMIT_MS:g} "
+        f"ms {'met' if pct(ro, 90) <= VPA_LIMIT_MS else 'NOT met'}")
+    for name, xs in rows.items():
+        log(f"[vpa] RunOnce {name} ms: p50 {pct(xs, 50)} p90 {pct(xs, 90)}")
+    fetches = sorted({s["fetches"] for s in steps})
+    log(f"[vpa] fetches per RunOnce: {fetches}; scatter launches on the path "
+        f"{launches} (history and {len(steps)} steps, 2 banks each)")
+    log(f"[vpa] updater over {len(script.pods)} pods: {run['updater_ms']} ms, "
+        f"{len(run['evicted'])} evictions of {len(run['decisions'])} acted "
+        f"decisions")
+    log(f"[vpa] checkpoint: {run['ckpt_bytes']} bytes, save {run['save_ms']} "
+        f"ms, load {run['load_ms']} ms, round trip byte-equal")
+    log(f"[vpa] peak device memory allocated: {peak_mib:.1f} MiB ({card})")
+    if launches != 2 * (1 + len(steps)):
+        raise AssertionError(f"[vpa] expected {2 * (1 + len(steps))} scatter "
+                             f"launches, got {launches}")
+    if fetches != [6]:
+        raise AssertionError(f"[vpa] fetches per RunOnce {fetches}, expected 6")
+    missing = [v.name for v in run["vpas"]
+               if len(v.recommendation) != len(VPA_CONTAINERS)]
+    if missing:
+        raise AssertionError(f"[vpa] {len(missing)} VPAs without a full "
+                             f"recommendation, e.g. {missing[:3]}")
+    bad = vpa_monotone(script, run["vpas"])
+    if bad:
+        raise AssertionError(f"[vpa] the target is not monotone in usage: "
+                             f"{len(bad)} pairs, e.g. {bad[:3]}")
+    ends = {res: [run["vpas"][int(f(level[:, 0]))].recommendation[0]
+                  .target[res] for f in (np.argmin, np.argmax)]
+            for res, level in (("cpu", script.cpu), ("memory", script.mem))}
+    oom = int(script.oom.any(axis=(0, 2, 3)).sum())
+    log(f"[vpa] every VPA recommended; targets monotone in usage, the memory "
+        f"targets of the {oom} workloads with an OOM within the OOM bump and "
+        f"one bucket of every higher level's (app target of the least and "
+        f"the most used workload: cpu {ends['cpu'][0]} .. {ends['cpu'][1]} "
+        f"cores, memory {ends['memory'][0]} .. {ends['memory'][1]} B)")
+
+    # the scatter kernel on the inputs the path gave it, and its times there
+    err = 0.0
+    names = ("history cpu bank", "RunOnce memory bank")
+    entry = {}
+    for name, args in zip(names, capture):
+        err = max(err, check_hist(f"vpa-path {name} inputs", args, kernel,
+                                  plain))
+        t = hist_times(args, kernel, plain)
+        log(f"[kernels] scatter_add_ordered {name} A={args[0].shape[0]} "
+            f"n={args[2].numel()}: kernel {t['kernel']} ms (device time; "
+            f"wrapper {t['launch']} ms as launched from Python, stable sort "
+            f"{t['sort']} ms of device time), plain (CPU index_add_) "
+            f"{t['plain']} ms, library (atomic index_add_ on the card) "
+            f"{t['library']} ms, bound {t['bound']} ms ({t['bound_by']})")
+        entry[name] = t
+    log(f"[kernels] plain routes on the card at the history's width: "
+        f"{plain_route_probe(capture[0])}")
+    del capture
+    t = entry[names[1]]
+    fields = {"ms": t["launch"], "device_ms": t["kernel"], "sort_ms": t["sort"],
+              "plain_ms": t["plain"], "bound_ms": t["bound"],
+              "bound_by": t["bound_by"], "library_ms": t["library"],
+              "history_ms": entry[names[0]]["launch"],
+              "history_device_ms": entry[names[0]]["kernel"],
+              "history_bound_ms": entry[names[0]]["bound"]}
+    log(f"[vpa] phase took {time.perf_counter() - t_phase:.1f} s")
+    run["script"] = script
+    return run, launches, fields, err
+
+
+def vpa_cpu_card_phase(card, card_run):
+    """Phase 21: [vpa]'s script on the CPU against [vpa]'s card run: both
+    banks' weights and totals byte-equal after the history and after every
+    RunOnce, every recommendation equal (floats exactly), the updater's
+    decisions equal, and each side's checkpoint loads on the other with its
+    arrays byte-equal."""
+    from kubernetes_autoscaler_tpu_torch.ops.hostfetch import to_host
+    from kubernetes_autoscaler_tpu_torch.vpa import checkpoint
+
+    t0 = time.perf_counter()
+    script = card_run["script"]
+    cpu_run = vpa_run("cpu", script)
+    for i, (c, g) in enumerate(zip(cpu_run["snap"], card_run["snap"])):
+        for j, (a, b) in enumerate(zip(c, g)):
+            if a.numpy().tobytes() != to_host(b).tobytes():
+                when = "the history" if i == 0 else f"step {i}"
+                raise AssertionError(f"[vpa-cpu-card] bank array {j} differs "
+                                     f"after {when}")
+    for k, (a, b) in enumerate(zip(cpu_run["recs"], card_run["recs"])):
+        if a != b:
+            raise AssertionError(f"[vpa-cpu-card] recommendations differ at "
+                                 f"step {k}")
+    if cpu_run["decisions"] != card_run["decisions"]:
+        raise AssertionError("[vpa-cpu-card] the updater's decisions differ")
+    for path, device, want in ((card_run["ckpt"], "cpu", cpu_run["rec"]),
+                               (cpu_run["ckpt"], DEVICE, card_run["rec"])):
+        loaded = checkpoint.load_checkpoint(path, device=device)
+        if loaded._index != want._index or not all(
+                to_host(a).tobytes() == to_host(b).tobytes()
+                for a, b in zip(vpa_snapshot(loaded), vpa_snapshot(want))):
+            raise AssertionError(f"[vpa-cpu-card] the checkpoint {path} does "
+                                 f"not load on {device} byte-equal")
+    for run in (cpu_run, card_run):
+        shutil.rmtree(run["dir"], ignore_errors=True)
+    n_recs = sum(len(r) for step in cpu_run["recs"] for r in step)
+    log(f"[vpa-cpu-card] {len(cpu_run['snap'])} bank snapshots byte-equal "
+        f"(after the history and {len(cpu_run['steps'])} steps), {n_recs} "
+        f"recommendations equal, {len(cpu_run['decisions'])} updater "
+        f"decisions equal, checkpoints load across byte-equal; the CPU run "
+        f"(RunOnce p50 {pct([s['run_once'] for s in cpu_run['steps']], 50)} "
+        f"ms) and the comparison took {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -3369,6 +3914,8 @@ def main() -> int:
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
         build,
+        hist_cases,
+        histogram_kernel,
         pack_cases,
         pack_kernel,
         wave_cases,
@@ -3383,7 +3930,8 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE])
+    libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE,
+                        histogram_kernel.SOURCE])
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, lib in libs.items():
@@ -3402,6 +3950,8 @@ def main() -> int:
                     pack_kernel.pack_groups_batched_plain)
     k2, k2_plain = (wavefront_kernel.pack_groups_wavefront,
                     wavefront_kernel.pack_groups_wavefront_plain)
+    k3, k3_plain = (histogram_kernel.scatter_add_ordered,
+                    histogram_kernel.scatter_add_ordered_plain)
 
     # 3. kernels against their plain versions on seeded cases
     k1_err = k2_err = 0
@@ -3411,6 +3961,9 @@ def main() -> int:
     for name, case in wave_cases.CASES.items():
         k2_err = max(k2_err, check_wave(
             name, [a.to(DEVICE) for a in case()], k2, k2_plain))
+    k3_err = 0.0
+    for name, case in hist_cases.CASES.items():
+        k3_err = max(k3_err, check_hist(name, case(), k3, k3_plain))
 
     dims = Dims()
     # 4. the fused main path at full size
@@ -3450,8 +4003,14 @@ def main() -> int:
         card, dims, k1, k1_plain)
     k1_err = max(k1_err, err)
     sidecar_cpu_card_phase(card)
+    # 20-21. the VPA recommender at a large cluster's scale on the card; the
+    # same script on the CPU against it
+    vpa_run_card, k3_launches, k3_entry, err = vpa_phase(card, k3, k3_plain)
+    k3_err = max(k3_err, err)
+    vpa_cpu_card_phase(card, vpa_run_card)
+    del vpa_run_card
 
-    # 20. result: `ms` is the kernel as launched from Python (CUDA events
+    # 22. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
     # same launch with the stream held while the host enqueues it
     kernels = [{
@@ -3490,6 +4049,21 @@ def main() -> int:
         "checked": True,
         "shapes": "scale_up_sim with a wavefront plan: the filter pack on the "
                   "partitioned world, one launch per step",
+    }, {
+        "name": "scatter_add_ordered",
+        "route": "cuda",
+        "source": "kubernetes_autoscaler_tpu_torch/csrc/histogram.cu",
+        "replaces": "kubernetes_autoscaler_tpu/vpa/histogram.py:118",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        **k3_entry,
+        "checked": True,
+        "shapes": "the VPA recommender: a RunOnce's memory-bank feed "
+                  "(100,000 samples into 33,790 x 176 bins; ms, plain_ms, "
+                  "bound_ms, library_ms there), the history's CPU bank "
+                  "(history_*); XLA's scatter-add, no Pallas kernel; "
+                  "library_ms: atomic index_add_ on bins and totals; "
+                  "plain_ms: the plain version on the CPU",
     }]
     log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)

@@ -3,7 +3,8 @@ on the card.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
-Without a CUDA device every test skips. Tolerance: none (integer outputs).
+Without a CUDA device every test skips. Tolerance: none (integer outputs; the histogram scatter's f32 sums are
+added in the same order as the plain version's).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import torch
 
 from kubernetes_autoscaler_tpu_torch.ops import pack
 from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+    hist_cases,
+    histogram_kernel,
     pack_cases,
     pack_kernel,
     wave_cases,
@@ -261,3 +264,51 @@ def test_pack_kernel_on_sidecar_batched_inputs(cuda):
                                        getattr(want, field)), (b, name, field)
     finally:
         svc.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(hist_cases.CASES))
+def test_histogram_kernel_cases(cuda, name):
+    """Every bin and total byte-equal to the plain version's sum in sample
+    order on the CPU."""
+    args = hist_cases.CASES[name]()
+    dev_args = [a.to(cuda) for a in args]
+    histogram_kernel.scatter_add_ordered_plain(*args)
+    before = histogram_kernel.scatter_add_ordered.launches
+    histogram_kernel.scatter_add_ordered(*dev_args)
+    torch.cuda.synchronize()
+    assert histogram_kernel.scatter_add_ordered.launches == before + 1
+    assert torch.equal(dev_args[0].cpu(), args[0])
+    assert torch.equal(dev_args[1].cpu(), args[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("agg", -1), ("agg", 8),
+                                         ("bucket", -1), ("bucket", 176)])
+def test_histogram_kernel_refuses_samples_outside_the_bank(cuda, field,
+                                                           value):
+    """As on the CPU: a sample outside the bank raises before any launch,
+    and the bank is left as it was."""
+    weights, total, agg, bucket, w = [
+        a.to(cuda) for a in hist_cases.hist_case(9, 8, 100)]
+    w0, t0 = weights.clone(), total.clone()
+    {"agg": agg, "bucket": bucket}[field][37] = value
+    before = histogram_kernel.scatter_add_ordered.launches
+    with pytest.raises(ValueError, match="outside"):
+        histogram_kernel.scatter_add_ordered(weights, total, agg, bucket, w)
+    torch.cuda.synchronize()
+    assert histogram_kernel.scatter_add_ordered.launches == before
+    assert torch.equal(weights, w0) and torch.equal(total, t0)
+
+
+@pytest.mark.cuda
+def test_histogram_kernel_rejects_what_it_does_not_take(cuda):
+    weights, total, agg, bucket, w = [
+        a.to(cuda) for a in hist_cases.hist_case(0, 8, 50)]
+    f = histogram_kernel.scatter_add_ordered
+    with pytest.raises(TypeError):
+        f(weights, total, agg.long(), bucket, w)
+    with pytest.raises(ValueError):
+        f(weights, total, agg.cpu(), bucket, w)
+    with pytest.raises(ValueError):
+        f(weights, total[:4], agg, bucket, w)
