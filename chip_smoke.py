@@ -234,8 +234,6 @@ LOOP_SMALL_NODES = 512        # the CPU-vs-card loop world
 # the constrained tier: the bench world with constraints (bench_pod_factory)
 CON_STEPS = 10                # timed constrained fused steps
 CON_PHASED_STEPS = 3          # timed run_once_sim steps with constraints
-WAVE_CHECKS = (1, 2, 4, 8, 16)  # wave-check intervals swept
-WAVE_ROUNDS = 3               # interleaved rounds of the sweep, one step each
 CON_LOOP_STEPS = 4            # timed constrained loops after the cold one
 CON_LOOP_SMALL_PODS = 250     # pending pods of the 512-node constrained loop
 KINDS_WAVE_PODS = 140         # the every-kind world's one-zone spread group
@@ -2245,27 +2243,253 @@ def kinds_objects(n_nodes):
 
 
 def wave_counts():
+    """(waves, flag reads) of the wave placer's plain version (the CPU
+    route; both stay 0 on the card)."""
     from kubernetes_autoscaler_tpu_torch.ops.constrained import place_lanes
 
     return place_lanes.waves, place_lanes.flag_reads
 
 
+def constrained_world(dims):
+    """The constrained bench world on the card: (enc, groups, step), `step`
+    one `run_once_fused` with the constrained tier (on_phase optional)."""
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+
+    enc, groups = build_world(NODES, PODS, POD_GROUPS, NODEGROUPS,
+                              RESIDENTS_PER_NODE, DEVICE, constrained=True)
+    limit_cap = torch.full((groups.ng,), MAX_NEW_NODES, dtype=torch.int32,
+                           device=DEVICE)
+
+    def step(on_phase=None):
+        return autoscale_step.run_once_fused(
+            enc.nodes, enc.specs, enc.scheduled, groups, limit_cap, dims,
+            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
+            planes=enc.planes, with_constraints=True, on_phase=on_phase)
+
+    return enc, groups, step
+
+
+def constrained_steps(card, step, snap=None):
+    """CON_STEPS timed steps after the caller's warm-up: step ms (host clock
+    to a synchronize), phase ms (CUDA events), the plain version's waves and
+    flag reads per phase and, with `snap` (a device-side copy of the
+    kernel's wave counter, taken without a host read), the kernel's waves
+    per phase. Returns (step_ms, phase_ms, stats, last output)."""
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+
+    bounds = list(autoscale_step.PHASES) + ["end"]
+    step_ms, phase_ms = [], {p: [] for p in autoscale_step.PHASES}
+    stats = {k: {p: [] for p in autoscale_step.PHASES}
+             for k in ("waves", "reads", "kernel_waves")}
+    out = None
+    for _ in range(CON_STEPS):
+        events, counts, snaps = {}, {}, {}
+
+        def on_phase(name, events=events, counts=counts, snaps=snaps):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name] = ev
+            counts[name] = wave_counts()
+            if snap is not None:
+                snaps[name] = snap()
+
+        t0 = time.perf_counter()
+        out = step(on_phase)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for a, b in zip(bounds, bounds[1:]):
+            phase_ms[a].append(events[a].elapsed_time(events[b]))
+            stats["waves"][a].append(counts[b][0] - counts[a][0])
+            stats["reads"][a].append(counts[b][1] - counts[a][1])
+            if snap is not None:
+                stats["kernel_waves"][a].append(int(snaps[b]) - int(snaps[a]))
+    log(f"[constrained] step ms over {CON_STEPS} steps: {step_ms}; p50 "
+        f"{pct(step_ms, 50)} p90 {pct(step_ms, 90)} ({card})")
+    for p in autoscale_step.PHASES:
+        kw = (f", kernel lane-waves a step {sorted(set(stats['kernel_waves'][p]))}"
+              if snap is not None else "")
+        log(f"[constrained] phase {p} ms (CUDA events): p50 "
+            f"{pct(phase_ms[p], 50)} p90 {pct(phase_ms[p], 90)}; plain waves "
+            f"a step {sorted(set(stats['waves'][p]))}, flag reads a step "
+            f"{sorted(set(stats['reads'][p]))}{kw} ({card})")
+    return step_ms, phase_ms, stats, out
+
+
+def record_con_calls(step):
+    """One step with the kernel's wrappers recording the inputs of the
+    filter pack (the first pack_lanes of one lane), the options pack (the
+    first of several lanes) and one drain chunk's slot (the place_lanes call
+    with the most active lanes, the first where none has one; its `out`
+    buffers cloned before the call writes them). Returns {name: (kind,
+    args, kwargs)}."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
+
+    got, most = {}, [-1]
+    real_place = constrained_kernel.place_lanes
+    real_pack = constrained_kernel.pack_lanes
+
+    def place(*a, **kw):
+        n_active = int(kw["active"].sum()) if kw.get("active") is not None \
+            else a[3].shape[0]
+        if n_active > most[0]:
+            most[0] = n_active
+            got["drain"] = ("place", a, dict(
+                kw, out=tuple(t.clone() for t in kw["out"])))
+        return real_place(*a, **kw)
+
+    def pack(*a, **kw):
+        name = "filter" if a[0].shape[0] == 1 else "options"
+        got.setdefault(name, ("pack", a, kw))
+        return real_pack(*a, **kw)
+
+    constrained_kernel.place_lanes, constrained_kernel.pack_lanes = place, pack
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        constrained_kernel.place_lanes = real_place
+        constrained_kernel.pack_lanes = real_pack
+    missing = {"filter", "options", "drain"} - set(got)
+    if missing:
+        raise AssertionError(f"the constrained step made no {missing} call")
+    log(f"[constrained] recorded the kernel's inputs: filter, options, a "
+        f"drain slot with {most[0]} of {got['drain'][1][3].shape[0]} lanes "
+        f"active")
+    if not most[0]:
+        # this world's drain re-places no constrained group, so the slot is
+        # also checked with every lane active: every candidate's pods of
+        # that slot re-placed by waves, on the slot's own inputs
+        kind, a, kw = got["drain"]
+        got["drain, every lane active"] = (kind, a, dict(
+            kw, active=torch.ones_like(kw["active"])))
+    return got
+
+
+def con_call(fn_place, fn_pack, kind, args, kw):
+    """A recorded call through a place_lanes / pack_lanes pair; a flat
+    tuple of outputs (the `out` buffers cloned first)."""
+    if kind == "pack":
+        res = fn_pack(*args)
+        return res.free_after, res.placed, res.scheduled
+    out = tuple(t.clone() for t in kw["out"])
+    return tuple(fn_place(*args, active=kw["active"], out=out))
+
+
+def check_con(name, got, want) -> int:
+    """Byte equality of the kernel's outputs with the plain version's;
+    returns the max abs difference."""
+    err = 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: output {k} {g.dtype}"
+                                 f"{tuple(g.shape)} vs {w.dtype}"
+                                 f"{tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: output {k} differs from the plain "
+                                 f"version")
+    log(f"[kernels] constrained wave placer == plain: {name}")
+    return err
+
+
+def con_bound(kind, args, kw, lane_waves):
+    """(bound ms, 'bytes'|'operations') of one call of the kernel on these
+    inputs: each input read once (a shared row once), each output written
+    once; operations: 4R integer ops a resource (clamp, divide, min,
+    update) and 40 more for the gates, caps and scans on every node of
+    every wave a lane ran (`lane_waves`, the kernel's count for this call),
+    plus 4R + 8 on every node of every (lane, group) that takes the
+    one-shot first fit."""
+    free = args[0]
+    n, r = free.shape[-2:]
+    act = kw.get("active") if kind == "place" else None
+    b = args[3].shape[0] if kind == "place" else free.shape[0]
+    share = int(act.sum()) / b if act is not None else 1.0
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    tensors += list(vars(args[5 if kind == "place" else 6]).values())
+    in_bytes = 0.0
+    for t in tensors:
+        shared = t.dim() and t.shape[0] > 1 and t.stride(0) == 0
+        lanes = not shared and t.dim() and t.shape[0] == b and b > 1
+        if shared:
+            t = t[0]                               # a shared row, read once
+        in_bytes += t.numel() * t.element_size() * (share if lanes else 1.0)
+    if kind == "pack":
+        g = args[2].shape[0]
+        out_bytes = (b * n * r + b * g * n + b * g) * 4
+        fast = b * g - int(args[6].is_constrained().expand(b, g).sum())
+    else:
+        out_bytes = b * share * (n * r + n) * 4
+        fast = 0
+    ops = lane_waves * n * (4 * r + 40) + fast * n * (4 * r + 8)
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def con_times(name, kind, args, kw, plain_reps):
+    """The kernel's times on recorded inputs: as launched from Python and
+    device time (the stream held while the host enqueues), the plain
+    version's on the card, the lane-waves of one call and the bound."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel as ck
+
+    if kind == "pack":
+        def kernel():
+            return ck.pack_lanes(*args)
+
+        def plain():
+            return ck.pack_lanes_plain(*args)
+    else:
+        # `out` written in place, outside the timed calls' own work: a call
+        # rewrites the active lanes with the same values and no others
+        out_k = tuple(t.clone() for t in kw["out"])
+        out_p = tuple(t.clone() for t in kw["out"])
+
+        def kernel():
+            return ck.place_lanes(*args, active=kw["active"], out=out_k)
+
+        def plain():
+            return ck.place_lanes_plain(*args, active=kw["active"], out=out_p)
+    counter = ck.wave_counter(DEVICE)
+    counter.zero_()
+    kernel()
+    torch.cuda.synchronize()
+    lane_waves = int(counter)
+    bound, bound_by = con_bound(kind, args, kw, lane_waves)
+    t = {"launch": cuda_ms(kernel, REPS), "kernel": cuda_ms(kernel, REPS,
+                                                             hold=True),
+         "plain": cuda_ms(plain, plain_reps, warmup=1), "bound": bound,
+         "bound_by": bound_by, "lane_waves": lane_waves}
+    b = args[0].shape[0] if kind == "pack" else args[3].shape[0]
+    log(f"[kernels] constrained wave placer {name} ({kind}_lanes B={b} "
+        f"N={args[0].shape[-2]} R={args[0].shape[-1]}, {lane_waves} "
+        f"lane-waves a call): kernel {t['kernel']} ms device time, "
+        f"{t['launch']} ms as launched from Python; plain {t['plain']} ms on "
+        f"the card; bound {bound} ms ({bound_by})")
+    return t
+
+
 def constrained_phase(dims, card, profile_dir=None):
-    """Phase 13: `run_once_fused` with the constrained tier on the bench
-    world with constraints (bench_pod_factory): step and phase times, the
-    waves and flag reads of each phase, one step under torch.profiler, peak
-    memory, invariants and the decision; the wave-check interval swept
-    (outputs byte-equal at every interval); `run_once_sim` with
-    constraints."""
+    """Phase 14: `run_once_fused` with the constrained tier on the bench
+    world with constraints (bench_pod_factory): the wave placer's kernel
+    against its plain version on the step's own inputs (the filter pack,
+    the options pack, one drain chunk's constrained slot); step and phase
+    times with the kernel's launches and lane-waves; one step with no host
+    read; the kernel's and the plain version's times; one step under
+    torch.profiler; invariants and the decision; `run_once_sim` with
+    constraints. Returns (launches, JSON fields, max abs error)."""
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
         ClusterTensors,
     )
-    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step, constrained
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+        constrained_kernel as ck,
+    )
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
 
     t0 = time.perf_counter()
-    enc, groups = build_world(NODES, PODS, POD_GROUPS, NODEGROUPS,
-                              RESIDENTS_PER_NODE, DEVICE, constrained=True)
+    enc, groups, step = constrained_world(dims)
     log(f"[constrained] world encoded in {time.perf_counter() - t0:.1f} s: "
         f"{describe(enc, groups)}, max_new_nodes {MAX_NEW_NODES}, "
         f"max_pods_per_node {MAX_PODS_PER_NODE} ({card})")
@@ -2277,93 +2501,68 @@ def constrained_phase(dims, card, profile_dir=None):
             kinds["hostname anti-affinity to residents"],
             kinds["zone affinity"], kinds["host check"]) != (5, 5, 5, 5, 0):
         raise AssertionError(f"unexpected constraint kinds {kinds}")
-    limit_cap = torch.full((groups.ng,), MAX_NEW_NODES, dtype=torch.int32,
-                           device=DEVICE)
-
-    def step(on_phase=None):
-        return autoscale_step.run_once_fused(
-            enc.nodes, enc.specs, enc.scheduled, groups, limit_cap, dims,
-            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
-            planes=enc.planes, with_constraints=True, on_phase=on_phase)
 
     step()                                               # warm-up
     torch.cuda.synchronize()
+    # the kernel against its plain version (called directly, on the card)
+    # on the inputs this step gives it
+    calls = record_con_calls(step)
+    err = 0
+    for name, (kind, args, kw) in calls.items():
+        err = max(err, check_con(
+            f"[constrained] {name} inputs",
+            con_call(ck.place_lanes, ck.pack_lanes, kind, args, kw),
+            con_call(ck.place_lanes_plain, ck.pack_lanes_plain, kind, args,
+                     kw)))
+    torch.cuda.synchronize()
+
+    # the main path: counts zeroed just before, read just after
+    counter = ck.wave_counter(DEVICE)
     torch.cuda.reset_peak_memory_stats()
     pack_kernel.pack_groups_batched.launches = 0
-    bounds = list(autoscale_step.PHASES) + ["end"]
-    step_ms, phase_ms = [], {p: [] for p in autoscale_step.PHASES}
-    waves, reads = {p: [] for p in autoscale_step.PHASES}, \
-        {p: [] for p in autoscale_step.PHASES}
-    for _ in range(CON_STEPS):
-        events, counts = {}, {}
-
-        def on_phase(name, events=events, counts=counts):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name] = ev
-            counts[name] = wave_counts()
-
-        t0 = time.perf_counter()
-        decision, resident = step(on_phase)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        for a, b in zip(bounds, bounds[1:]):
-            phase_ms[a].append(events[a].elapsed_time(events[b]))
-            waves[a].append(counts[b][0] - counts[a][0])
-            reads[a].append(counts[b][1] - counts[a][1])
+    ck.launch.launches = 0
+    counter.zero_()
+    w0 = wave_counts()
+    step_ms, phase_ms, stats, (decision, resident) = constrained_steps(
+        card, step, snap=counter.clone)
+    launches = ck.launch.launches
+    torch.cuda.synchronize()
+    lane_waves = int(counter)
+    w1 = wave_counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     k1 = pack_kernel.pack_groups_batched.launches
-    log(f"[constrained] step ms over {CON_STEPS} steps: {step_ms}; p50 "
-        f"{pct(step_ms, 50)} p90 {pct(step_ms, 90)} ({card})")
-    for p in autoscale_step.PHASES:
-        log(f"[constrained] phase {p} ms (CUDA events): p50 "
-            f"{pct(phase_ms[p], 50)} p90 {pct(phase_ms[p], 90)}; waves a "
-            f"step {sorted(set(waves[p]))}, flag reads a step "
-            f"{sorted(set(reads[p]))} ({card})")
+    log(f"[constrained] the wave placer's kernel: {launches} launches in "
+        f"{CON_STEPS} steps ({launches / CON_STEPS} a step), {lane_waves} "
+        f"lane-waves ({lane_waves / CON_STEPS} a step); the plain version's "
+        f"waves {w1[0] - w0[0]} and flag reads {w1[1] - w0[1]} ({card})")
     log(f"[constrained] peak device memory allocated: {peak_mib:.1f} MiB; "
         f"K1 launches {k1} in {CON_STEPS} steps (the constrained pack "
         f"replaces it) ({card})")
     if k1:
         raise AssertionError("K1 ran on the constrained path")
-    # the wave-check interval, in interleaved rounds before the profiler
-    # runs: the filter phase (where the waves are) by CUDA events, the step
-    # by the host clock, outputs byte-equal at every interval
-    want = flat((decision, resident))
-    default = constrained.WAVE_CHECK
-    sweep = {k: {"step": [], "filter": [], "waves": 0, "reads": 0}
-             for k in WAVE_CHECKS}
-    try:
-        for _ in range(WAVE_ROUNDS):
-            for k in WAVE_CHECKS:
-                constrained.WAVE_CHECK = k
-                events = {}
+    if not launches or not lane_waves:
+        raise AssertionError("the constrained step launched no wave placer")
+    if w1 != w0:
+        raise AssertionError("the plain wave placer ran on the card")
 
-                def on_phase(name, events=events):
-                    ev = torch.cuda.Event(enable_timing=True)
-                    ev.record()
-                    events[name] = ev
+    # one step with no host read at all
+    r0 = wave_counts()
+    with no_host_reads():
+        step()
+    torch.cuda.synchronize()
+    reads = wave_counts()[1] - r0[1]
+    log(f"[constrained] one step under torch.cuda sync debug mode 'error': "
+        f"no host read, flag reads {reads}")
+    if reads:
+        raise AssertionError(f"{reads} flag reads on the card")
 
-                w0 = wave_counts()
-                t0 = time.perf_counter()
-                out = step(on_phase)
-                torch.cuda.synchronize()
-                row = sweep[k]
-                row["step"].append((time.perf_counter() - t0) * 1e3)
-                row["filter"].append(events["filter"].elapsed_time(
-                    events["scale_up"]))
-                w1 = wave_counts()
-                row["waves"], row["reads"] = w1[0] - w0[0], w1[1] - w0[1]
-                for path, t in flat(out).items():
-                    if not torch.equal(t, want[path]):
-                        raise AssertionError(f"WAVE_CHECK={k}: {path} differs")
-    finally:
-        constrained.WAVE_CHECK = default
-    for k, row in sweep.items():
-        log(f"[constrained] WAVE_CHECK {k}: step ms {row['step']} (median "
-            f"{statistics.median(row['step'])}), filter ms {row['filter']} "
-            f"(median {statistics.median(row['filter'])}), waves a step "
-            f"{row['waves']}, flag reads a step {row['reads']}, outputs "
-            f"byte-equal ({card})")
+    # the kernel's and the plain version's times on the step's inputs (the
+    # plain version at the filter's inputs is the route the card took
+    # before the kernel)
+    times = {name: con_times(name, kind, args, kw,
+                             1 if name.startswith("drain") else 3)
+             for name, (kind, args, kw) in calls.items()}
+    del calls
 
     profile_step(step, pct(step_ms, 50), profile_dir, tag="[constrained]",
                  trace_name="chip_smoke_constrained_step.trace.json")
@@ -2413,6 +2612,24 @@ def constrained_phase(dims, card, profile_dir=None):
         f"{CON_PHASED_STEPS} steps: {ms}; fits existing "
         f"{int(up.fits_existing.sum())}, best {int(up.best)}, drainable "
         f"{int(down.removal.drainable.sum())} ({card})")
+    f = times["filter"]
+    entry = {"ms": f["launch"], "device_ms": f["kernel"],
+             "plain_ms": f["plain"], "bound_ms": f["bound"],
+             "bound_by": f["bound_by"],
+             "lane_waves": lane_waves, "lane_waves_per_step":
+                 lane_waves / CON_STEPS,
+             "launches_per_step": launches / CON_STEPS,
+             "step_p50_ms": pct(step_ms, 50), "step_p90_ms": pct(step_ms, 90),
+             "filter_p50_ms": pct(phase_ms["filter"], 50)}
+    for name, t in times.items():
+        if name == "filter":
+            continue
+        key = name.split(",")[0] + ("_all_active" if "," in name else "")
+        entry.update({f"{key}_ms": t["launch"],
+                      f"{key}_device_ms": t["kernel"],
+                      f"{key}_plain_ms": t["plain"],
+                      f"{key}_bound_ms": t["bound"]})
+    return launches, entry, err
 
 
 def constrained_cpu_card_phase(dims, card):
@@ -2494,9 +2711,22 @@ def constrained_loop_world(n_nodes, n_pods,
     return fake, make_pod
 
 
+def con_launches():
+    """The wave placer kernel's launches so far; None for a port without the
+    kernel (an older tree measured by tools/torch_loop_ab.py)."""
+    try:
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+            constrained_kernel,
+        )
+    except ImportError:
+        return None
+    return constrained_kernel.launch.launches
+
+
 def loop_constrained_phase(card):
     """Phase 15: the control loop on the constrained bench world at full
-    width with [loop]'s churn: one cold loop, CON_LOOP_STEPS timed."""
+    width with [loop]'s churn: one cold loop, CON_LOOP_STEPS timed.
+    Returns (loop ms, {phase: share of the loops' time})."""
     from kubernetes_autoscaler_tpu_torch.core.scaledown import native_confirm
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
 
@@ -2522,11 +2752,13 @@ def loop_constrained_phase(card):
     for loop in range(CON_LOOP_STEPS):
         script.before(loop)
         w0 = wave_counts()
+        c0 = con_launches()
         s0 = dict(hist._sums)
         t0 = time.perf_counter()
         st = a.run_once(now=1010.0 + 10.0 * loop)
         ms.append((time.perf_counter() - t0) * 1e3)
         w1 = wave_counts()
+        c1 = con_launches()
         spans = {k[0][1]: (v - s0.get(k, 0.0)) * 1e3
                  for k, v in hist._sums.items()}
         rows.append({"loop": loop, "ms": ms[-1], "fused_mode": st.fused_mode,
@@ -2536,6 +2768,7 @@ def loop_constrained_phase(card):
                                f"{a._world_store.last_cause}",
                      "h2d_bytes": a._world_store.last_h2d_bytes,
                      "waves": w1[0] - w0[0], "reads": w1[1] - w0[1],
+                     "con_launches": None if c0 is None else c1 - c0,
                      "spans": {k: spans.get(k, 0.0) for k in (
                          "snapshot_build", "fused_dispatch",
                          "speculative_dispatch")},
@@ -2548,7 +2781,8 @@ def loop_constrained_phase(card):
         log(f"[loop-constrained] loop {r['loop']}: {r['ms']} ms, fused_mode "
             f"{r['fused_mode']}, speculation {r['speculation']}, round trips "
             f"{r['round_trips']}, encode {r['encode']}, world-store h2d "
-            f"{r['h2d_bytes']} B, waves {r['waves']}, flag reads {r['reads']} "
+            f"{r['h2d_bytes']} B, plain waves {r['waves']}, flag reads "
+            f"{r['reads']}, wave-placer kernel launches {r['con_launches']} "
             f"(real and speculative dispatch), host ms "
             f"{json.dumps(r['spans'])}, scaled up {r['scaled_up']}, pending "
             f"{r['pending']} ({card})")
@@ -2558,10 +2792,12 @@ def loop_constrained_phase(card):
     sums = {k[0][1]: v - sums0.get(k[0][1], 0.0)
             for k, v in hist._sums.items()}
     total = sum(ms) / 1e3
+    shares = {}
     for name in ("snapshot_build", "fused_dispatch", "fused_harvest",
                  "scale_up", "scale_down_update", "scale_down_confirm",
                  "speculative_dispatch", "main"):
         v = sums.get(name, 0.0)
+        shares[name] = v / total
         log(f"[loop-constrained] phase {name} total {v} s over "
             f"{CON_LOOP_STEPS} loops ({100.0 * v / total:.1f} % of the "
             f"loops' time) ({card})")
@@ -2571,6 +2807,7 @@ def loop_constrained_phase(card):
         raise AssertionError("a constrained loop took more than 2 round trips")
     if not native_confirm.available():
         raise AssertionError("the native confirmation is not available")
+    return ms, shares
 
 
 def loop_constrained_cpu_card_phase(card):
@@ -4084,8 +4321,9 @@ def mesh_phase(card, dims, world):
     """Phase 22: the device mesh at [main]'s world, on a one-rank NCCL
     group in this process, then on a two-rank gloo group of two processes
     (mesh_gloo_run). Returns (K1 launches on the path, the two-rank run's
-    K1 launches); the times are logged only: the sharded pack and the
-    sharded estimate are not kernels of their own."""
+    K1 launches, K1's times on one rank's option slice); the sharded
+    pack's and estimate's times are logged only: they are not kernels of
+    their own."""
     import torch.distributed as dist
 
     from kubernetes_autoscaler_tpu_torch.ops import binpack, pack
@@ -4155,12 +4393,24 @@ def mesh_phase(card, dims, world):
             f"{REPS}): pack_groups_sharded {t['sharded_pack']} vs K1's "
             f"filter pack {t['filter_pack']}; estimate_all with the mesh "
             f"{t['sharded_estimate']} vs without {t['estimate']} ({card})")
+        # K1 alone on one rank's option slice of the (2, 1) mesh (the first
+        # half of the options; the one-rank mesh's slice is the options row)
+        (free3, mask3, *rest_args), _ = binpack.option_pack_inputs(
+            rest, groups, dims, MAX_NEW_NODES)
+        half = -(-free3.shape[0] // 2)
+        slice_args = [free3[:half].contiguous(), mask3[:half].contiguous(),
+                      *rest_args]
+        k1_slice = k1_times(slice_args, pack_kernel.pack_groups_batched,
+                            pack_kernel.pack_groups_batched_plain)
+        log(f"[kernels] pack_groups_batched [mesh] option slice of one rank "
+            f"of (2, 1) B={half} G={rest_args[0].shape[0]} "
+            f"N={free3.shape[1]}: {k1_line(k1_slice)} ({card})")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
     gloo_launches = mesh_gloo_run(card)
     log(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches, gloo_launches
+    return launches, gloo_launches, k1_slice
 
 
 def main() -> int:
@@ -4184,6 +4434,8 @@ def main() -> int:
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
         build,
+        con_cases,
+        constrained_kernel,
         hist_cases,
         histogram_kernel,
         pack_cases,
@@ -4201,7 +4453,7 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE,
-                        histogram_kernel.SOURCE])
+                        histogram_kernel.SOURCE, constrained_kernel.SOURCE])
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, lib in libs.items():
@@ -4239,6 +4491,13 @@ def main() -> int:
             k3_err = max(k3_err, check_hist(
                 f"out of bank (row {row}, bucket {bucket}, n {n})",
                 hist_cases.out_of_bank_case(row, bucket, n), k3, k3_plain))
+    ck = constrained_kernel
+    con_err = 0
+    for name, case in con_cases.CASES.items():
+        case = case().to(DEVICE)
+        con_err = max(con_err, check_con(
+            f"case {name}", case.run(ck.place_lanes, ck.pack_lanes),
+            case.run(ck.place_lanes_plain, ck.pack_lanes_plain)))
 
     dims = Dims()
     # 4. the fused main path at full size
@@ -4268,7 +4527,9 @@ def main() -> int:
     # 14-17. the constrained tier: the fused step at full width, the steps
     # CPU against the card, the control loop at full width and CPU against
     # the card
-    constrained_phase(dims, card, args.profile)
+    con_launches, con_entry, err = constrained_phase(dims, card,
+                                                     args.profile)
+    con_err = max(con_err, err)
     constrained_cpu_card_phase(dims, card)
     loop_constrained_phase(card)
     loop_constrained_cpu_card_phase(card)
@@ -4285,7 +4546,8 @@ def main() -> int:
     vpa_cpu_card_phase(card, vpa_run_card)
     del vpa_run_card
     # 22. the device mesh at [main]'s world: one rank, then two
-    mesh_launches, mesh_gloo_launches = mesh_phase(card, dims, world)
+    mesh_launches, mesh_gloo_launches, k1_slice = mesh_phase(card, dims,
+                                                             world)
 
     # 23. result: `ms` is the kernel as launched from Python (CUDA events
     # around the launch call, the host's enqueue included), `device_ms` the
@@ -4316,6 +4578,10 @@ def main() -> int:
         "sidecar_options_device_ms": side_times["options"]["kernel"],
         "mesh_launches": mesh_launches,
         "mesh_gloo_launches": mesh_gloo_launches,
+        "mesh_slice_ms": k1_slice["launch"],
+        "mesh_slice_device_ms": k1_slice["kernel"],
+        "mesh_slice_plain_ms": k1_slice["plain"],
+        "mesh_slice_bound_ms": k1_slice["bound"],
     }, {
         "name": "pack_groups_wavefront",
         "route": "cuda",
@@ -4343,6 +4609,22 @@ def main() -> int:
                   "(history_*); XLA's scatter-add, no Pallas kernel; "
                   "library_ms: atomic index_add_ on bins and totals; "
                   "plain_ms: the plain version on the CPU",
+    }, {
+        "name": "constrained_wave_placer",
+        "route": "cuda",
+        "source": "kubernetes_autoscaler_tpu_torch/csrc/constrained.cu",
+        "replaces": "kubernetes_autoscaler_tpu/ops/constrained.py:235",
+        "launches": con_launches,
+        "max_abs_err": con_err,
+        **con_entry,
+        "library_ms": None,
+        "checked": True,
+        "shapes": "[constrained]'s run_once_fused: the filter pack (pack_lanes "
+                  "B=1, N=5120, G=64; ms, device_ms, plain_ms, bound_ms "
+                  "there), the options pack (B=NG, N=max_new_nodes), the "
+                  "drain's constrained slots (place_lanes, B=a chunk); XLA's "
+                  "while_loop and scan, no Pallas kernel; library_ms: no "
+                  "single PyTorch call computes a constrained wave pack",
     }]
     log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)

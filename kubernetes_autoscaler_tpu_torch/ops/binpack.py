@@ -175,21 +175,23 @@ def _estimate_constrained(specs: PodGroupTensors, groups: NodeGroupTensors,
     zone_kinds = (specs.spread_kind == 2) | (specs.aff_kind == 2)
     gate = gate & torch.where(zone_kinds[:, None], tval[None, :], True)
     mask_gt = mask_gt & gate
-    mask = mask & gate.T[:, :, None]                                  # [NG, G, M]
+    mask = (mask & gate.T[:, :, None]).contiguous()                   # [NG, G, M]
     sel_t = predicates.selector_match(groups.label_hash, specs).T      # [NG, G]
 
     # one lane per option: M bins, the first max_new of them open
     bin_open = (torch.arange(m, dtype=i32, device=dev)[None, :]
                 < groups.max_new[:, None])                             # [NG, M]
     s_elig_bins = sel_t[:, :, None] & bin_open[:, None, :]
-    s_elig_bins = s_elig_bins & torch.where(
-        (specs.spread_kind == 2)[None, :, None], tval[:, None, None], True)
+    s_elig_bins = (s_elig_bins & torch.where(
+        (specs.spread_kind == 2)[None, :, None], tval[:, None, None],
+        True)).contiguous()
     a_ok_bins = ((specs.aff_kind == 2)[None, :] & tval[:, None]
-                 & (aff_zone[:, tzl].T > 0))[:, :, None].expand(-1, -1, m)
+                 & (aff_zone[:, tzl].T > 0))[:, :, None].expand(
+                     -1, -1, m).contiguous()
     zones = torch.arange(z_dim, dtype=tzc.dtype, device=dev)
     elig_zone_bins = elig_zone[None] | (
         (zones[None, :] == tzc[:, None])[:, None, :]
-        & (sel_t & tval[:, None])[:, :, None])                         # [NG, G, Z]
+        & (sel_t & tval[:, None])[:, :, None]).contiguous()            # [NG, G, Z]
     cons = GroupConstraints(
         s_kind=specs.spread_kind[None], s_skew=specs.max_skew[None],
         s_self=specs.spread_self[None],
@@ -200,7 +202,8 @@ def _estimate_constrained(specs: PodGroupTensors, groups: NodeGroupTensors,
         anti_self_zone=specs.anti_self_zone[None],
         cnt_zone_base=cnt_zone[None], elig_zone_base=elig_zone_bins,
         min_host_base=min_host[None],
-        zone_cl=tzc[:, None].expand(-1, m), zone_valid=tval[:, None].expand(-1, m))
+        zone_cl=tzc[:, None].expand(-1, m).contiguous(),
+        zone_valid=tval[:, None].expand(-1, m).contiguous())
     res = pack_lanes(free0, mask, req, count, order, limit_one, cons, z_dim)
     pods_per_node = res.placed.sum(dim=1, dtype=i32)                   # [NG, M]
     node_count = (pods_per_node > 0).sum(dim=-1).to(i32)

@@ -18,21 +18,19 @@ greedy would; waves only batch the order. The wave count is capped at
 MAX_WAVES: placements beyond the cap are dropped, as in the reference (a
 zone spread with maxSkew 1 over 3 zones places about 3 pods a wave).
 
-One implementation, `place_lanes`, runs B independent lanes at once, each
-its own group on its own node set: B = 1 for the filter pack, B = node
-groups for the expansion options (the reference's vmap over options), B =
-drain candidates (its vmap over candidates). A lane that has finished is
-frozen with `torch.where`, as `while_loop` under `vmap` does. The host reads
-one "any lane active" flag every WAVE_CHECK waves to end the loop; the
-waves between two reads that find every lane finished change nothing, so
-WAVE_CHECK changes no result.
-
-The reference's `lax.cond(is_con[g], slow, fast)` is kept as a device-side
-select between the wave placer and the one-shot first-fit: the host only
-learns, from one read per pack (or per drain chunk), which wave loops have
-an active lane at all, and runs no wave loop for the others (a group that
-is not constrained, or has nothing to place, gets the first-fit result the
-select would pick anyway).
+Two entry points run B independent lanes at once, each its own node row:
+`place_lanes` places one group a lane (the reference's
+`place_group_constrained` under vmap: B = drain candidates), `pack_lanes`
+the whole FFD group loop of a lane (`pack_groups_constrained` under vmap:
+B = 1 for the filter pack, B = node groups for the expansion options),
+constrained groups by waves and the others by the one-shot first fit, as
+the reference's `lax.cond(is_con[g], slow, fast)` picks. On CUDA tensors
+both are one launch of the hand-written kernel (csrc/constrained.cu): one
+CTA a lane runs every wave of the lane and the host reads nothing. On CPU
+tensors their plain versions run (ops/kernels/constrained_kernel.py): a
+Python loop of waves over all lanes, a finished lane frozen with
+`torch.where`, one "any lane active" flag read every WAVE_CHECK waves, and
+one read per pack of which groups have a wave loop to run.
 """
 
 from __future__ import annotations
@@ -47,14 +45,13 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     PodGroupTensors,
     _Tree,
 )
-from kubernetes_autoscaler_tpu_torch.ops.pack import PackResult, fit_count
+from kubernetes_autoscaler_tpu_torch.ops.pack import PackResult
 
 BIG = 1 << 28
 MAX_WAVES = 128
-# waves between two reads of the "any lane active" flag; a larger value
-# trades reads (each a device synchronisation) for no-op waves after the
-# last lane finishes. 2 was the fastest of 1, 2, 4, 8 and 16 on an H100
-# (PERF.md, the constrained step)
+# the plain version's waves between two reads of the "any lane active"
+# flag; a larger value trades reads for no-op waves after the last lane
+# finishes, and changes no result
 WAVE_CHECK = 2
 
 I32 = torch.int32
@@ -168,120 +165,33 @@ def constraints_for_nodes(specs: PodGroupTensors, planes: AffinityPlanes,
     )
 
 
-def _zone_segments(zone_cl: torch.Tensor, zone_valid: torch.Tensor,
-                   max_zones: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(perm, seg), both i64[B or 1, N]: `perm` orders each row's nodes by
-    zone, keyless nodes last, node order kept within a zone; `seg[i]` is the
-    position in that order where sorted node i's zone begins."""
-    key = torch.where(zone_valid, zone_cl.long(), max_zones)
-    perm = torch.argsort(key, dim=1, stable=True)
-    skey = key.gather(1, perm).contiguous()
-    return perm, torch.searchsorted(skey, skey)
-
-
-def place_lanes(free: torch.Tensor,       # i32[B, N, R]
-                feas: torch.Tensor,       # bool[B, N] full feasibility
-                req: torch.Tensor,        # i32[B, R]
+def place_lanes(free: torch.Tensor,       # i32[B|1, N, R]
+                feas: torch.Tensor,       # bool[B|1, N] full feasibility
+                req: torch.Tensor,        # i32[B|1, R]
                 want: torch.Tensor,       # i32[B]
-                limit_one: torch.Tensor,  # bool[B]
+                limit_one: torch.Tensor,  # bool[B|1]
                 cons: GroupConstraints,   # gathered to lanes
-                max_zones: int) -> tuple[torch.Tensor, torch.Tensor]:
+                max_zones: int,
+                active: torch.Tensor | None = None,  # bool[B]
+                out: tuple | None = None,  # (i32[B, N, R], i32[B, N])
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wave-greedy placement of B independent lanes, each one constrained
     group onto its own node row; returns (free', place i32[B, N]). The
     reference's `place_group_constrained` under vmap: a lane runs while it
     has pods left and its last wave placed some, for at most MAX_WAVES
-    waves; a finished lane is frozen.
+    waves. A lane with `active` false is left as `out` holds it (the input
+    capacity and no placement without `out`; `out` is written in place).
 
-    The host reads the "any lane active" flag after every WAVE_CHECK waves
-    (not before the first: callers run the loop only when a lane starts
-    active). `place_lanes.waves` and `place_lanes.flag_reads` count the
-    waves run and the flags read."""
-    b, n, _ = free.shape
-    dev = free.device
-    node_ids = torch.arange(n, device=dev)
-    perm, seg = _zone_segments(cons.zone_cl, cons.zone_valid, max_zones)
-    perm, seg = perm.expand(b, n), seg.expand(b, n)
-    zcl = cons.zone_cl.long().expand(b, n)
-    zval = cons.zone_valid.expand(b, n)
-    zval_i = zval.to(I32)
-    # per-lane constants as columns
-    lone = limit_one[:, None]
-    a_kind = cons.a_kind[:, None]
-    s_self = cons.s_self[:, None]
-    skew = cons.s_skew[:, None]
-    host_spread = (cons.s_kind == 1)[:, None]
-    zone_spread = (cons.s_kind == 2)[:, None]
-    anti_zone = cons.anti_self_zone[:, None]
-    boot_kind = (cons.a_kind > 0) & cons.a_self & ~cons.a_any      # [B]
+    The kernel on CUDA tensors, its plain version on CPU tensors
+    (ops/kernels/constrained_kernel.py). `place_lanes.waves` and
+    `place_lanes.flag_reads` count the plain version's waves and host
+    reads; the kernel reads nothing (`constrained_kernel.wave_counter`
+    counts its waves)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
 
-    free_c = free
-    placed = torch.zeros((b, n), dtype=I32, device=dev)
-    rem = want.to(I32)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for wave in range(MAX_WAVES):
-        if wave and wave % WAVE_CHECK == 0:
-            place_lanes.flag_reads += 1
-            if not bool(((rem > 0) & ~done).any()):
-                break
-        place_lanes.waves += 1
-        act = (rem > 0) & ~done
-        fit = torch.minimum(fit_count(free_c, req), rem[:, None])
-        fit = torch.where(feas, fit, 0)
-        fit = torch.where(lone, torch.minimum(1 - (placed > 0).to(I32), fit),
-                          fit)
-
-        # --- positive affinity: resident-satisfied, self-opened, or bootstrap
-        zone_placed = torch.zeros((b, max_zones), dtype=I32, device=dev)
-        zone_placed.scatter_add_(1, zcl, placed * zval_i)             # [B, Z]
-        open_zone = zval & (zone_placed.gather(1, zcl) > 0)
-        dom_open = torch.where(a_kind == 1, placed > 0, open_zone)
-        aff_ok = cons.a_ok_node | (cons.a_self[:, None] & dom_open)
-        can = feas & (fit > 0)
-        bootstrap = boot_kind & (placed.sum(dim=1) == 0)
-        first = can.to(I32).argmax(dim=1)            # the first True, else 0
-        boot_mask = (node_ids[None, :] == first[:, None]) \
-            & can.any(dim=1)[:, None]
-        aff_ok = torch.where(bootstrap[:, None], boot_mask,
-                             torch.where(a_kind > 0, aff_ok, True))
-        fit = torch.where(aff_ok, fit, 0)
-
-        # --- hostname-domain spread: per-node allowance
-        cnt_n = cons.s_cnt_node + torch.where(s_self, placed, 0)
-        min_h = torch.minimum(torch.where(cons.s_elig, cnt_n, BIG).amin(dim=1),
-                              cons.min_host_base)
-        min_h = torch.where(min_h >= BIG, 0, min_h)
-        allow_h = (min_h[:, None] + skew - cnt_n).clamp(min=0)
-        fit = torch.where(host_spread, torch.minimum(fit, allow_h), fit)
-
-        # --- zone-domain caps: spread allowance and/or anti-self 1-per-zone
-        cnt_z = cons.cnt_zone_base + torch.where(s_self, zone_placed, 0)
-        min_z = torch.where(cons.elig_zone_base, cnt_z, BIG).amin(dim=1)
-        min_z = torch.where(min_z >= BIG, 0, min_z)
-        allow_z = (min_z[:, None] + skew - cnt_z).clamp(min=0)
-        zone_cap = torch.where(zone_spread, allow_z, BIG)
-        zone_cap = torch.where(
-            anti_zone, torch.minimum(zone_cap, (1 - zone_placed).clamp(min=0)),
-            zone_cap)
-        # what earlier nodes of the same zone take: an exclusive prefix sum
-        # over the zone-ordered nodes, restarted at each zone
-        fs = fit.gather(1, perm)
-        ex = torch.cumsum(fs, dim=1, dtype=I32) - fs
-        ex = ex - ex.gather(1, seg)
-        excl = torch.empty_like(ex).scatter_(1, perm, ex)
-        capped = (zone_cap.gather(1, zcl) - excl).clamp(min=0)
-        # keyless nodes have no zone domain: uncapped by zone constraints
-        fit_z = torch.where(zval, torch.minimum(fit, capped), fit)
-
-        # --- global first-fit in node-index order
-        cum = torch.cumsum(fit_z, dim=1, dtype=I32)
-        place = torch.minimum((rem[:, None] - (cum - fit_z)).clamp(min=0), fit_z)
-        place = torch.where(act[:, None], place, 0)
-        n_placed = place.sum(dim=1, dtype=I32)
-        free_c = free_c - place[:, :, None] * req[:, None, :]
-        placed = placed + place
-        rem = rem - n_placed
-        done = done | (act & (n_placed == 0))
-    return free_c, placed
+    return constrained_kernel.place_lanes(free, feas, req, want, limit_one,
+                                          cons, max_zones, active=active,
+                                          out=out)
 
 
 place_lanes.waves = 0
@@ -308,21 +218,8 @@ def place_group_constrained(free: torch.Tensor,       # i32[N, R]
     return free_out[0], place[0]
 
 
-def _at_group(cons: GroupConstraints, g: int, b: int) -> GroupConstraints:
-    """Lane view of group `g` of lane-batched constraints (each field
-    [B or 1, G, ...]), expanded to B lanes."""
-    fields = {}
-    for k, v in vars(cons).items():
-        if k in ("zone_cl", "zone_valid"):
-            fields[k] = v
-        else:
-            x = v[:, g]
-            fields[k] = x.expand((b,) + tuple(x.shape[1:]))
-    return GroupConstraints(**fields)
-
-
 def pack_lanes(free: torch.Tensor,       # i32[B, N, R]
-               mask: torch.Tensor,       # bool[B, G, N] full static feasibility
+               mask: torch.Tensor,       # bool[B|1, G, N] full static feasibility
                req: torch.Tensor,        # i32[G, R]
                count: torch.Tensor,      # i32[G]
                order: torch.Tensor,      # i32[G]
@@ -330,40 +227,15 @@ def pack_lanes(free: torch.Tensor,       # i32[B, N, R]
                cons: GroupConstraints,   # fields [B or 1, G, ...]
                max_zones: int) -> PackResult:
     """First-fit-decreasing pack of every group into B independent node
-    rows, topology-coupled groups through the wave placer. One read of
-    (order, which groups have a wave to run) per call; a group is then
-    placed by the one-shot first-fit (ops/pack.pack_groups' arithmetic)
-    and, where its wave loop has work, by the wave placer, the two joined
-    by a device-side select on `is_constrained`."""
-    b, n, r = free.shape
-    g_total = req.shape[0]
-    is_con = cons.is_constrained()                                 # [B|1, G]
-    slow0 = is_con.any(dim=0) & (count > 0)
-    order_h, slow_h = torch.stack([order.to(I32), slow0.to(I32)]).tolist()
-    place_lanes.flag_reads += 1
+    rows, topology-coupled groups through the wave placer, the others by
+    the one-shot first fit (ops/pack.pack_groups' arithmetic): the
+    reference's `pack_groups_constrained` under vmap. The kernel on CUDA
+    tensors (one launch, `order` read on the card), its plain version on
+    CPU tensors (ops/kernels/constrained_kernel.py)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
 
-    free_c = free
-    placed = torch.zeros((b, g_total, n), dtype=I32, device=free.device)
-    for g in order_h:
-        reqg, cnt = req[g], count[g]
-        c = fit_count(free_c, reqg)                                 # [B, N]
-        c = torch.where(mask[:, g, :], c, 0)
-        c = torch.where(limit_one[g], c.clamp(max=1), c)
-        c = torch.minimum(c, cnt)
-        cum = torch.cumsum(c, dim=1, dtype=I32)
-        place = torch.minimum((cnt - (cum - c)).clamp(min=0), c)
-        fast_free = free_c - place[:, :, None] * reqg
-        if slow_h[g]:
-            slow_free, slow_place = place_lanes(
-                free_c, mask[:, g, :], reqg.expand(b, r), cnt.expand(b),
-                limit_one[g].expand(b), _at_group(cons, g, b), max_zones)
-            con = is_con[:, g]
-            fast_free = torch.where(con[:, None, None], slow_free, fast_free)
-            place = torch.where(con[:, None], slow_place, place)
-        free_c = fast_free
-        placed[:, g, :] = place
-    return PackResult(free_after=free_c, placed=placed,
-                      scheduled=placed.sum(dim=-1, dtype=I32))
+    return constrained_kernel.pack_lanes(free, mask, req, count, order,
+                                         limit_one, cons, max_zones)
 
 
 def pack_groups_constrained(free: torch.Tensor,       # i32[N, R]

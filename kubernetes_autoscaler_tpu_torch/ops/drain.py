@@ -16,7 +16,9 @@ With `with_constraints` the re-placement is topology-aware: host-level
 gates join the predicate plane, the candidate's own residents leave its
 zone's counts before its pods are re-placed (the reference's ghost node),
 and constrained groups re-place through the wave placer
-(ops/constrained.py), the candidates of a chunk being its lanes. Only the
+(ops/constrained.place_lanes), the candidates of a chunk being its lanes
+and `active` the (candidate, slot) lanes whose group is constrained and has
+pods, so the sweep itself reads nothing to the host. Only the
 gathered group of each (candidate, slot) is gated, as a [C, N] plane built
 from [C, Z] adjusted zone counts; no [C, G, N] plane is formed.
 
@@ -222,11 +224,9 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
 
         dest = dest_ok[None, :] & (node_ids[None, :] != c[:, None])    # [C, N]
         if topo is not None:
-            # one read per chunk: which (candidate, slot) lanes have a wave
-            # loop to run
+            # the (candidate, slot) lanes with a wave loop to run, on the
+            # device: place_lanes' `active`
             slow = (topo.is_con[gidx] & (cnt_k > 0)).T.contiguous()    # [K, C]
-            slow_h = slow.sum(dim=1).tolist()
-            place_lanes.flag_reads += 1
 
         # --- K-step first-fit of whole groups onto destinations ---
         free_c = free0.expand(cn, n, free0.shape[1])
@@ -246,18 +246,13 @@ def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
             place = torch.minimum((want[:, None] - (cum - fit)).clamp(min=0), fit)
             place = place.to(i32)
             new_free = free_c - place[:, :, None] * reqg[:, None, :]
-            if topo is not None and slow_h[j]:
-                # the lanes whose group is constrained and has pods: the
-                # first slow_h[j] of a stable sort that puts them first
-                lanes = torch.argsort((~slow[j]).to(i32),
-                                      stable=True)[:slow_h[j]]
-                lf, lp = place_lanes(
-                    free_c[lanes], feas_row[lanes], reqg[lanes], want[lanes],
-                    limit_g[gi[lanes]],
-                    topo.lane_constraints(gi[lanes], c[lanes].long()),
-                    max_zones)
-                new_free.index_copy_(0, lanes, lf)
-                place.index_copy_(0, lanes, lp)
+            if topo is not None:
+                # the lanes whose group is constrained and has pods re-place
+                # by waves, over the first fit's result in place
+                place_lanes(free_c, feas_row, reqg, want.contiguous(),
+                            limit_g[gi],
+                            topo.lane_constraints(gi, c.long()), max_zones,
+                            active=slow[j], out=(new_free, place))
             free_c = new_free
             placed_k.append(place.sum(dim=1))
             cumplace_k.append(torch.cumsum(place, dim=1))

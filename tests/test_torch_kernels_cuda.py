@@ -3,8 +3,9 @@ on the card.
 
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
-Without a CUDA device every test skips. Tolerance: none (integer outputs; the histogram scatter's f32 sums are
-added in the same order as the plain version's).
+Without a CUDA device every test skips. Tolerance: none (integer outputs,
+the constrained wave placer's int32 wrap-around included; the histogram
+scatter's f32 sums are added in the same order as the plain version's).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch
 
 from kubernetes_autoscaler_tpu_torch.ops import pack
 from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+    con_cases,
+    constrained_kernel,
     hist_cases,
     histogram_kernel,
     pack_cases,
@@ -318,3 +321,98 @@ def test_histogram_kernel_rejects_what_it_does_not_take(cuda):
         f(weights, total, agg.cpu(), bucket, w)
     with pytest.raises(ValueError):
         f(weights, total[:4], agg, bucket, w)
+
+
+# --------------------------------------------- the constrained wave placer
+
+
+def _con_outputs(case, device):
+    """(kernel outputs on the card, plain outputs on the CPU) of a case."""
+    want = case.run(constrained_kernel.place_lanes,
+                    constrained_kernel.pack_lanes)
+    before = constrained_kernel.launch.launches
+    got = case.to(device).run(constrained_kernel.place_lanes,
+                              constrained_kernel.pack_lanes)
+    torch.cuda.synchronize()
+    assert constrained_kernel.launch.launches == before + 1
+    return [g.cpu() for g in got], want
+
+
+def _assert_con_equal(got, want):
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert torch.equal(g, w), f"output {k} differs from the plain version"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["fit", "device"])
+@pytest.mark.parametrize("name", list(con_cases.CASES))
+def test_constrained_kernel_cases(cuda, name, plane, monkeypatch):
+    """Every case, with the plane where it fits (shared memory at these
+    widths) and forced into device memory."""
+    if plane == "device":
+        monkeypatch.setattr(constrained_kernel, "plane_in_shared_memory",
+                            lambda n, r, z: False)
+    _assert_con_equal(*_con_outputs(con_cases.CASES[name](), cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["filter", "options", "drain", "global"])
+def test_constrained_kernel_main_path_shapes(cuda, shape):
+    """B = 1 at the filter's N, B = 24 at the options' N, a drain chunk's
+    B, and an N past the shared-memory plane (device-memory plane)."""
+    case = {
+        "filter": lambda: con_cases.pack_case(1, 1, 64, 5120, r=8,
+                                              count_max=2000),
+        "options": lambda: con_cases.pack_case(2, 24, 64, 1024, r=8,
+                                               lane_zone=True),
+        "drain": lambda: con_cases.place_case(3, 1280, 256, r=8,
+                                              shared_zone=True, active_p=0.3),
+        "global": lambda: con_cases.pack_case(4, 2, 8, 6144, r=8,
+                                              count_max=3000),
+    }[shape]()
+    n, r = case.args[0].shape[-2:]
+    assert constrained_kernel.plane_in_shared_memory(n, r, con_cases.Z) \
+        == (shape != "global")
+    _assert_con_equal(*_con_outputs(case, cuda))
+
+
+@pytest.mark.cuda
+def test_constrained_kernel_counts_its_waves(cuda):
+    """The device counter adds each lane's waves: the MAX_WAVES case runs
+    exactly the cap; a call under sync debug mode "error" reads nothing."""
+    counter = constrained_kernel.wave_counter(cuda)
+    counter.zero_()
+    case = con_cases.CASES["max_waves"]().to(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        case.run(constrained_kernel.place_lanes, constrained_kernel.pack_lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(counter) == constrained_kernel._con.MAX_WAVES
+
+
+@pytest.mark.cuda
+def test_constrained_kernel_rejects_what_it_does_not_take(cuda):
+    case = con_cases.CASES["drain_lanes"]().to(cuda)
+    free, feas, req, want, limit, cons, z = case.args
+    f = constrained_kernel.place_lanes
+    with pytest.raises(TypeError):
+        f(free.long(), feas, req, want, limit, cons, z)
+    with pytest.raises(ValueError):
+        f(free, feas.cpu(), req, want, limit, cons, z)
+    with pytest.raises(ValueError):
+        f(free, feas[:, :-1], req, want, limit, cons, z)
+    with pytest.raises(ValueError):
+        f(free.transpose(1, 2).contiguous().transpose(1, 2), feas, req, want,
+          limit, cons, z)
+    pack = con_cases.CASES["mixed_pack"]().to(cuda)
+    free, mask, req, count, order, limit, cons, z = pack.args
+    g = constrained_kernel.pack_lanes
+    with pytest.raises(TypeError):
+        g(free, mask, req, count.long(), order, limit, cons, z)
+    with pytest.raises(ValueError):
+        g(free, mask, req, count, order.cpu(), limit, cons, z)
+    with pytest.raises(ValueError):
+        g(free, mask, req, count, order, limit, cons, z + 1)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""`[loop]` (or `[main]`) of chip_smoke.py on the port of each given tree, in turns.
+"""`[loop]` (or another phase) of chip_smoke.py on the port of each given tree, in turns.
 
-    python3 tools/torch_loop_ab.py [--phase loop|main] TREE [TREE ...]
+    python3 tools/torch_loop_ab.py [--phase loop|main|constrained|loop-constrained]
+                                   [--log-dir DIR] TREE [TREE ...]
 
 For each TREE (a checkout of the repo, e.g. the parent commit unpacked with
 `git archive` into a directory .gitignore lists), in the order given, a fresh
@@ -12,7 +13,13 @@ churn script and clock for every tree, so two trees compare within one call
 (the tree, the timed loops' ms, p50 and p90, the card) and needs a card.
 With `--phase main` each run is `chip_smoke.main_phase` instead (the fused
 step on the main world, 100 steps; the line holds the step p50 and p90 that
-the phase prints).
+the phase prints). With `--phase constrained` each run is the constrained
+fused step (`chip_smoke.constrained_steps` on `constrained_world`: step and
+filter-phase p50/p90, then one step under torch.profiler: device kernels a
+step and the busy share of the step p50); with `--phase loop-constrained`
+it is `chip_smoke.loop_constrained_phase` (loop ms, p50, p90, each loop
+phase's share of the loops' time). `--log-dir` keeps each run's whole
+output there (`PHASE-I.log`).
 """
 
 from __future__ import annotations
@@ -35,7 +42,26 @@ if not os.path.abspath(pack_kernel.__file__).startswith(tree):
 build.build([pack_kernel.SOURCE])
 card = c.card_line()
 k1, k1_plain = pack_kernel.pack_groups_batched, pack_kernel.pack_groups_batched_plain
-if sys.argv[3] == "main":
+if sys.argv[3] == "constrained":
+    import contextlib, io
+    enc, groups, step = c.constrained_world(Dims())
+    step()
+    c.torch.cuda.synchronize()
+    ms, phase_ms, _, _ = c.constrained_steps(card, step)
+    with contextlib.redirect_stdout(io.StringIO()):
+        kernels, busy = c.profile_step(step, c.pct(ms, 50), None, tag="[constrained]")
+    f = phase_ms["filter"]
+    print(json.dumps({"tree": tree, "phase": "constrained", "ms": ms,
+                      "p50": c.pct(ms, 50), "p90": c.pct(ms, 90),
+                      "filter_p50": c.pct(f, 50), "filter_p90": c.pct(f, 90),
+                      "kernels": kernels, "busy": busy / c.pct(ms, 50),
+                      "card": card}))
+elif sys.argv[3] == "loop-constrained":
+    ms, shares = c.loop_constrained_phase(card)
+    print(json.dumps({"tree": tree, "phase": "loop-constrained", "ms": ms,
+                      "p50": c.pct(ms, 50), "p90": c.pct(ms, 90),
+                      "shares": shares, "card": card}))
+elif sys.argv[3] == "main":
     import argparse, contextlib, io, re
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -52,19 +78,27 @@ else:
 
 def main() -> int:
     args = sys.argv[1:]
-    phase = "loop"
-    if args[:1] == ["--phase"] and len(args) > 1:
-        phase, args = args[1], args[2:]
+    phase, log_dir = "loop", None
+    while args[:1] in (["--phase"], ["--log-dir"]) and len(args) > 1:
+        if args[0] == "--phase":
+            phase = args[1]
+        else:
+            log_dir = args[1]
+        args = args[2:]
     trees = [os.path.abspath(t) for t in args]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     smoke = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chip_smoke.py")
-    for tree in trees:
+    for i, tree in enumerate(trees):
         r = subprocess.run([sys.executable, "-c", CHILD, tree, smoke, phase],
                            cwd=tree, capture_output=True, text=True,
                            timeout=900)
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, f"{phase}-{i}.log"), "w") as f:
+                f.write(r.stdout + r.stderr)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
             return 1
