@@ -10,14 +10,19 @@ its own failure:
   2. build      every CUDA source of the port, built with nvcc in parallel,
                 and the native confirmation's host library
   3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu, the VPA scatter
-                histogram.cu) against its plain PyTorch version on the card,
+                histogram.cu, the wave placer constrained.cu, the drain sweep
+                drain.cu) against its plain PyTorch version on the card,
                 byte for byte, on seeded cases
   4. main       `run_once_fused` on the bench world (5,000 nodes, 50,000
                 pending pods in 25 groups, 40,000 residents, 20 node groups):
-                step and phase times, launches per step, peak memory,
-                invariants, and with --profile device time by kernel and the
-                device's busy share; K1 on the inputs the path gives it and
-                its times there
+                step and phase times, launches per step (K1 2, the drain
+                kernel 1), peak memory, invariants, and with --profile device
+                time by kernel and the device's busy share; K1 on the inputs
+                the path gives it and its times there; the drain kernel on
+                the step's own sweep inputs (recorded from one step), both
+                modes byte-equal to the plain version, one step with no host
+                read in the sweep, its times, the plain version's on the
+                card and the bound
   5. wavefront  the phased scale-up with a wavefront plan on the
                 pool-partitioned bench world (5 pools of 1,000 nodes, each
                 pending group pinned to one pool): plan time and plane fetch
@@ -38,8 +43,8 @@ its own failure:
                 200-pod 14,000m burst every fourth loop): one cold loop,
                 then 8 timed loops — loop times, phase totals, per loop the
                 fused mode, speculation outcome, round trips, encode mode,
-                world-store h2d bytes, K1 launches, the host time of the
-                speculative dispatch and how long the device stayed busy
+                world-store h2d bytes, K1 and drain kernel launches, the host
+                time of the speculative dispatch and how long the device stayed busy
                 with a discarded speculative program; K1 on the loop's
                 inputs against its plain version; with --profile the
                 host side of 4 more loops under cProfile (the functions by
@@ -54,8 +59,9 @@ its own failure:
  10. whatif     the what-if multiverse, branched from [loop]'s autoscaler
                 after its timed loops: a `multiverse_step` of 16 lanes (the
                 null lane and 15 of bench.py's variants) at full width, 5
-                timed calls after a warm one (ms, ms per lane-step, K1
-                launches, round trips, peak memory), lane 0 byte-equal to a
+                timed calls after a warm one (ms, ms per lane-step, K1 and
+                drain kernel launches, round trips, peak memory), lane 0
+                byte-equal to a
                 serial `run_once_fused` on the branch world (its phase
                 times by CUDA events) and its verdict the live loop's; a
                 `rollout_multiverse` of 4 lanes x 8 loops of bursty
@@ -114,7 +120,8 @@ its own failure:
                 window) and on a serial one; per tenant a thread, rounds
                 released together: 2 warm-up rounds, 5 timed ScaleUpSim and
                 2 timed ScaleDownSim rounds (ms per RPC by kind, class and
-                tier, sims/s, batches, occupancy, K1 launches a batch), a
+                tier, sims/s, batches, occupancy, K1 launches a batch, the
+                drain kernel's launches over the ScaleDownSim rounds), a
                 lone member padded to 4 lanes, a ninth tenant joining the
                 large class, a 500-pod churn delta. Asserted: every batched
                 response equals the serial service's, no world h2d and no
@@ -739,9 +746,37 @@ def profile_step(step, step_ms_p50, out_dir, tag="[profile]",
 # ---------------------------------------------------------------- phases
 
 
+def main_step(enc, groups, dims):
+    """(limit_cap, step) of the main world: `step(on_phase=None)` is one
+    `run_once_fused` at the main path's options."""
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+
+    limit_cap = torch.full((groups.ng,), MAX_NEW_NODES, dtype=torch.int32,
+                           device=DEVICE)
+
+    def step(on_phase=None):
+        return autoscale_step.run_once_fused(
+            enc.nodes, enc.specs, enc.scheduled, groups, limit_cap, dims,
+            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
+            on_phase=on_phase)
+
+    return limit_cap, step
+
+
+def drain_launches():
+    """The drain kernel's launches so far; None for a port without the
+    kernel (an older tree measured by tools/torch_loop_ab.py)."""
+    try:
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+    except ImportError:
+        return None
+    return drain_kernel.launch.launches
+
+
 def main_phase(args, dims, kernel, plain):
     """Phase 4: the fused step on the main world. Returns (world, K1
-    launches, K1 entry fields, max abs err)."""
+    launches, K1 entry fields, max abs err, drain kernel launches) over the
+    timed steps (the drain's None for a port without the kernel)."""
     from kubernetes_autoscaler_tpu_torch.ops import autoscale_step, drain
     from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
@@ -754,14 +789,7 @@ def main_phase(args, dims, kernel, plain):
         f"{describe(enc, groups)} (real nodes {NODES}), max_new_nodes "
         f"{MAX_NEW_NODES}, max_pods_per_node {MAX_PODS_PER_NODE}, drain chunk "
         f"{drain.default_chunk(enc.nodes.n, enc.nodes.n, enc.nodes.cap.shape[1])}")
-    limit_cap = torch.full((groups.ng,), MAX_NEW_NODES, dtype=torch.int32,
-                           device=DEVICE)
-
-    def step(on_phase=None):
-        return autoscale_step.run_once_fused(
-            enc.nodes, enc.specs, enc.scheduled, groups, limit_cap, dims,
-            max_new_nodes=MAX_NEW_NODES, max_pods_per_node=MAX_PODS_PER_NODE,
-            on_phase=on_phase)
+    limit_cap, step = main_step(enc, groups, dims)
 
     for _ in range(2):                                   # warm-up
         step()
@@ -769,6 +797,7 @@ def main_phase(args, dims, kernel, plain):
 
     torch.cuda.reset_peak_memory_stats()
     pack_kernel.pack_groups_batched.launches = 0
+    d0 = drain_launches()
     step_ms, phase_ms = [], {p: [] for p in autoscale_step.PHASES}
     for _ in range(STEPS):
         events = {}
@@ -786,6 +815,7 @@ def main_phase(args, dims, kernel, plain):
         for a, b in zip(bounds, bounds[1:]):
             phase_ms[a].append(events[a].elapsed_time(events[b]))
     launches = pack_kernel.pack_groups_batched.launches
+    d_launches = None if d0 is None else drain_launches() - d0
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"[main] step ms over {STEPS} steps: p50 {pct(step_ms, 50)} "
         f"p90 {pct(step_ms, 90)}")
@@ -797,6 +827,12 @@ def main_phase(args, dims, kernel, plain):
     log(f"[main] peak device memory allocated: {peak_mib:.1f} MiB")
     if launches != 2 * STEPS:
         raise AssertionError(f"expected 2 pack launches per step, got {launches}")
+    if d_launches is not None:
+        log(f"[main] drain kernel launches: {d_launches} in {STEPS} steps "
+            f"({d_launches / STEPS:g} per step)")
+        if d_launches != STEPS:
+            raise AssertionError(f"expected 1 drain launch per step, got "
+                                 f"{d_launches} in {STEPS} steps")
     if args.profile:
         profile_step(step, pct(step_ms, 50), args.profile)
 
@@ -844,7 +880,141 @@ def main_phase(args, dims, kernel, plain):
             bound_by = "operations"
     entry = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by}
-    return (enc, groups), launches, entry, max_err
+    return (enc, groups), launches, entry, max_err, d_launches
+
+
+# ---------------------------------------------------------------- the drain
+
+
+def check_drain(name, inp, kk) -> int:
+    """Byte equality of the drain kernel with its plain version on the card,
+    in both modes (the sweep's outputs and the reason pass's); returns the
+    max abs difference."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+
+    err = 0
+    for explain in (False, True):
+        got = drain_kernel.sweep(inp, kk, explain)
+        want = drain_kernel.sweep_plain(inp, kk, explain)
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{name}: output {k} (explain={explain}) "
+                                     f"{g.dtype}{tuple(g.shape)} vs "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: output {k} (explain={explain}) "
+                                     f"differs from the plain version")
+    n, r = inp.free.shape
+    log(f"[kernels] drain sweep == plain: {name} (C={inp.candidates.shape[0]} "
+        f"N={n} R={r} G={inp.req.shape[0]} P={inp.node_idx.shape[0]} "
+        f"MPN={inp.mpn} K={kk}), the sweep and the reason pass")
+    return err
+
+
+def drain_bound(inp, nodes_needed):
+    """(bound ms, 'bytes'|'operations') of one sweep (not explaining) on
+    these inputs: each input read once and each output written once; the
+    operations of the fit on every node the candidates' slots needed
+    (`nodes_needed`, the kernel's count for this call): 4R a node (load,
+    debit, divide, min a resource) plus 8 (the gates, the caps, the scan).
+    """
+    c, mpn = inp.candidates.shape[0], inp.mpn
+    in_bytes = sum(t.numel() * t.element_size() for t in vars(inp).values())
+    out_bytes = 2 * c + 2 * 4 * c + 2 * 4 * c * mpn
+    r = inp.free.shape[1]
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = nodes_needed * (4 * r + 8) / H100_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record_drain_call(step):
+    """One step with the drain kernel's wrapper recording its inputs:
+    (SweepInputs, K)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+
+    got = []
+    real = drain_kernel.sweep
+
+    def sweep(inp, kk, explain, chunk=None):
+        got.append((inp, kk, explain))
+        return real(inp, kk, explain, chunk)
+
+    drain_kernel.sweep = sweep
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        drain_kernel.sweep = real
+    if len(got) != 1 or got[0][2]:
+        raise AssertionError(f"the step made {len(got)} drain sweeps, not one")
+    return got[0][:2]
+
+
+def drain_phase(card, dims, world):
+    """Phase 4b: the drain kernel on the main step's own sweep inputs:
+    byte-equal to the plain version, one launch a step with no host read in
+    the sweep (torch.cuda sync debug mode "error" around
+    `drain.simulate_removals`), its device time, as launched from Python,
+    the reason pass's, the plain version's on the card and the bound.
+    Returns (JSON fields, max abs error)."""
+    from kubernetes_autoscaler_tpu_torch.ops import drain
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+
+    enc, groups = world
+    _, step = main_step(enc, groups, dims)
+    inp, kk = record_drain_call(step)
+    err = check_drain("main-path sweep inputs", inp, kk)
+
+    real = drain.simulate_removals
+
+    def guarded(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    d0 = drain_kernel.launch.launches
+    drain.simulate_removals = guarded
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        drain.simulate_removals = real
+    one = drain_kernel.launch.launches - d0
+    if one != 1:
+        raise AssertionError(f"a step launched the drain kernel {one} times")
+    log(f"[main] one step with the sweep under sync debug mode error: no host "
+        f"read, {one} drain launch")
+
+    counter = drain_kernel.node_counter(DEVICE)
+    counter.zero_()
+    drain_kernel.sweep(inp, kk, False)
+    torch.cuda.synchronize()
+    needed = int(counter)
+    n, r = inp.free.shape
+    c = inp.candidates.shape[0]
+    bound, bound_by = drain_bound(inp, needed)
+    t = {"launch": cuda_ms(lambda: drain_kernel.sweep(inp, kk, False), REPS),
+         "kernel": cuda_ms(lambda: drain_kernel.sweep(inp, kk, False), REPS,
+                           hold=True),
+         "explain": cuda_ms(lambda: drain_kernel.sweep(inp, kk, True), REPS,
+                            hold=True),
+         "plain": cuda_ms(lambda: drain_kernel.sweep_plain(inp, kk, False), 5,
+                          warmup=1)}
+    log(f"[kernels] drain sweep main path (C={c} N={n} R={r} "
+        f"G={inp.req.shape[0]} MPN={inp.mpn} K={kk}; its slots needed {needed} "
+        f"nodes, the reference's scan sweeps {c * kk * n}): kernel "
+        f"{t['kernel']} ms device time, {t['launch']} ms as launched from "
+        f"Python, reason pass {t['explain']} ms; plain {t['plain']} ms on the "
+        f"card; bound {bound} ms ({bound_by}) ({card})")
+    entry = {"ms": t["launch"], "device_ms": t["kernel"],
+             "explain_device_ms": t["explain"], "plain_ms": t["plain"],
+             "bound_ms": bound, "bound_by": bound_by, "nodes_needed": needed}
+    return entry, err
 
 
 def k1_times(a, kernel, plain):
@@ -1279,6 +1449,7 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
         e_begin.record(side)
         e_free.record(torch.cuda.current_stream())
         k0 = pack_kernel.pack_groups_batched.launches
+        d0 = drain_launches()
         s0 = hist._sums.get(spec_key, 0.0)
         t0 = time.perf_counter()
         st = a.run_once(now=1010.0 + 10.0 * loop)
@@ -1293,6 +1464,7 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
             "encode": f"{a._world_store.last_mode}/{a._world_store.last_cause}",
             "h2d_bytes": a._world_store.last_h2d_bytes,
             "k1_launches": pack_kernel.pack_groups_batched.launches - k0,
+            "drain_launches": None if d0 is None else drain_launches() - d0,
             "spec_busy_ms": busy, "spec_issue_ms": spec_issue_ms,
             "scaled_up": bool(st.scale_up is not None
                               and st.scale_up.scaled_up),
@@ -1306,7 +1478,8 @@ def loop_phase(card, dims, kernel, plain, profile_dir=None):
         log(f"[loop] loop {r['loop']}: {r['ms']} ms, fused_mode "
             f"{r['fused_mode']}, speculation {r['speculation']}, round trips "
             f"{r['round_trips']}, encode {r['encode']}, world-store h2d "
-            f"{r['h2d_bytes']} B, K1 launches {r['k1_launches']}, "
+            f"{r['h2d_bytes']} B, K1 launches {r['k1_launches']}, drain "
+            f"kernel launches {r['drain_launches']}, "
             f"speculative dispatch issued in {r['spec_issue_ms']} ms of host "
             f"time, device busy "
             f"with the {'discarded' if r['speculation'] == 'discard' else 'harvested' if r['speculation'] == 'hit' else 'no'}"
@@ -1542,11 +1715,12 @@ def whatif_phase(card, loop_a):
     with no_host_reads():
         kernel.multiverse_step(lanes.nodes, lanes.specs, lanes.scheduled,
                                lanes.groups, lanes.limit_cap, **kw)
-    step_ms, trips, launches = [], [], []
+    step_ms, trips, launches, d_launches = [], [], [], []
     for _ in range(WHATIF_STEPS):
         torch.cuda.synchronize()
         hostfetch.reset_round_trips()
         k1.launches = 0
+        d0 = drain_launches()
         t0 = time.perf_counter()
         with no_host_reads():
             dec, summary = kernel.multiverse_step(
@@ -1554,6 +1728,7 @@ def whatif_phase(card, loop_a):
                 lanes.limit_cap, **kw)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(k1.launches)
+        d_launches.append(drain_launches() - d0)
         trips.append(hostfetch.round_trips())
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_leaves = compare_host("[whatif] a: lane 0 against the serial step",
@@ -1573,8 +1748,9 @@ def whatif_phase(card, loop_a):
     log(f"[whatif] a: multiverse_step B={WHATIF_LANES} ms over "
         f"{WHATIF_STEPS} calls (host clock to the end of the one fetch): "
         f"{step_ms}; p50 {p50} p90 {pct(step_ms, 90)}; ms per lane-step "
-        f"{p50 / WHATIF_LANES}; K1 launches a step {launches}; round trips "
-        f"{trips}; peak device memory {peak_mib:.1f} MiB ({card})")
+        f"{p50 / WHATIF_LANES}; K1 launches a step {launches}, drain kernel "
+        f"launches a step {d_launches}; round trips {trips}; peak device "
+        f"memory {peak_mib:.1f} MiB ({card})")
     log(f"[whatif] a: lane 0 == serial run_once_fused ({n_leaves} leaves "
         f"byte-equal), verdict == the live loop's; lanes' best "
         f"{summary.best.tolist()}, nodes added "
@@ -1616,10 +1792,12 @@ def whatif_phase(card, loop_a):
     size0 = build.cache_size()
     hostfetch.reset_round_trips()
     k1.launches = 0
+    d0 = drain_launches()
     t0 = time.perf_counter()
     traj = roll(rl, adds, fails, kw)
     roll_ms = (time.perf_counter() - t0) * 1e3
     roll_launches, roll_trips = k1.launches, hostfetch.round_trips()
+    roll_drain = drain_launches() - d0
     with no_host_reads():
         one = kernel.rollout_fused(
             kernel._lane(rl.nodes, 1), kernel._lane(rl.specs, 1),
@@ -1649,7 +1827,8 @@ def whatif_phase(card, loop_a):
     log(f"[whatif] b: rollout_multiverse B={WHATIF_ROLL_LANES} "
         f"T={WHATIF_ROLL_T} bursty: {roll_ms} ms ({roll_ms / lane_steps} "
         f"ms per lane-step), second variant set {roll2_ms} ms; K1 launches "
-        f"{roll_launches}; round trips {roll_trips}, {roll2_trips}; build "
+        f"{roll_launches}, drain kernel launches {roll_drain}; round trips "
+        f"{roll_trips}, {roll2_trips}; build "
         f"cache growth {growth}; lane 1 == rollout_fused ({card})")
     log(f"[whatif] b: per lane {json.dumps(rep['perLane'])}; trajectory "
         f"digests {[d[:12] for d in rep['trajectoryDigests']]}, second set "
@@ -3327,12 +3506,14 @@ def sidecar_phase(card, dims, kernel, plain):
     torch.cuda.synchronize()
     hostfetch.reset_round_trips()
     k1.launches = 0
+    d0 = drain_launches()
     t0 = time.perf_counter()
     for r in range(SIDE_UP_ROUNDS):
         run("batched", svc, f"up{r}", "up", tenants, True)
     up_s = time.perf_counter() - t0
     up_batches = svc._scheduler.batches - batches0
     up_launches = k1.launches
+    d_up = drain_launches() - d0
     t0 = time.perf_counter()
     for r in range(SIDE_DOWN_ROUNDS):
         run("batched", svc, f"down{r}", "down", tenants, True)
@@ -3340,6 +3521,7 @@ def sidecar_phase(card, dims, kernel, plain):
     batches = svc._scheduler.batches - batches0
     trips = hostfetch.round_trips()
     down_launches = k1.launches - up_launches
+    d_down = drain_launches() - d0 - d_up
     if h2d.total() != h2d0:
         raise AssertionError(f"[sidecar] world h2d moved over the steady "
                              f"rounds: {h2d.total() - h2d0} B")
@@ -3353,6 +3535,9 @@ def sidecar_phase(card, dims, kernel, plain):
         raise AssertionError(f"[sidecar] K1 launches: {up_launches} over the "
                              f"ScaleUpSim rounds, {down_launches} over the "
                              f"ScaleDownSim rounds")
+    if d_down == 0:
+        raise AssertionError("[sidecar] the ScaleDownSim rounds launched the "
+                             "drain kernel no time")
     stats = svc.batch_stats()
     log(f"[sidecar] batched: {SIDE_UP_ROUNDS} ScaleUpSim rounds of "
         f"{len(tenants)} tenants in {up_s} s ({SIDE_UP_ROUNDS * len(tenants) / up_s} "
@@ -3361,7 +3546,9 @@ def sidecar_phase(card, dims, kernel, plain):
         f"batches ({up_batches} ScaleUpSim), {trips} fetches, occupancy p50 "
         f"{stats['occupancy_p50']}, stack cache {stats['stack_cache']}; K1 "
         f"{up_launches} launches over the ScaleUpSim rounds "
-        f"({up_launches / up_batches} a batch), 0 over ScaleDownSim; world "
+        f"({up_launches / up_batches} a batch), 0 over ScaleDownSim; drain "
+        f"kernel {d_up} launches over the ScaleUpSim rounds, {d_down} over "
+        f"ScaleDownSim ({d_down / (batches - up_batches)} a batch); world "
         f"h2d 0 B, build cache {cache0} libraries before and after ({card})")
 
     t0 = time.perf_counter()
@@ -4436,6 +4623,8 @@ def main() -> int:
         build,
         con_cases,
         constrained_kernel,
+        drain_cases,
+        drain_kernel,
         hist_cases,
         histogram_kernel,
         pack_cases,
@@ -4453,7 +4642,8 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE,
-                        histogram_kernel.SOURCE, constrained_kernel.SOURCE])
+                        histogram_kernel.SOURCE, constrained_kernel.SOURCE,
+                        drain_kernel.SOURCE])
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, lib in libs.items():
@@ -4498,11 +4688,19 @@ def main() -> int:
         con_err = max(con_err, check_con(
             f"case {name}", case.run(ck.place_lanes, ck.pack_lanes),
             case.run(ck.place_lanes_plain, ck.pack_lanes_plain)))
+    drain_err = 0
+    for name, case in drain_cases.CASES.items():
+        case = case().to(DEVICE)
+        drain_err = max(drain_err, check_drain(
+            f"case {name}", case.inputs(), case.max_groups_per_node))
 
     dims = Dims()
-    # 4. the fused main path at full size
-    world, k1_launches, k1_entry, err = main_phase(args, dims, k1, k1_plain)
+    # 4. the fused main path at full size; the drain kernel on its sweep
+    world, k1_launches, k1_entry, err, drain_main_launches = main_phase(
+        args, dims, k1, k1_plain)
     k1_err = max(k1_err, err)
+    drain_entry, err = drain_phase(card, dims, world)
+    drain_err = max(drain_err, err)
     # 5. the wavefront path at full size
     k2_launches, k2_entry, err = wavefront_phase(dims, world)
     k2_err = max(k2_err, err)
@@ -4625,6 +4823,22 @@ def main() -> int:
                   "drain's constrained slots (place_lanes, B=a chunk); XLA's "
                   "while_loop and scan, no Pallas kernel; library_ms: no "
                   "single PyTorch call computes a constrained wave pack",
+    }, {
+        "name": "drain_sweep",
+        "route": "cuda",
+        "source": "kubernetes_autoscaler_tpu_torch/csrc/drain.cu",
+        "replaces": "kubernetes_autoscaler_tpu/ops/drain.py:312",
+        "launches": drain_main_launches,
+        "max_abs_err": drain_err,
+        **drain_entry,
+        "library_ms": None,
+        "checked": True,
+        "shapes": "[main]'s run_once_fused: the scale-down sweep, every node a "
+                  "candidate (C=N=5120, G=64, MPN=128, K=16; ms, device_ms, "
+                  "plain_ms, bound_ms there), one launch a step; the reason "
+                  "pass (failure_reasons) is the same kernel; XLA's scan under "
+                  "vmap, no Pallas kernel; library_ms: no single PyTorch call "
+                  "computes a K-step first fit",
     }]
     log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)

@@ -1,0 +1,463 @@
+// The drain sweep, hand-written for Hopper (sm_90a): every candidate node's
+// removal simulated in one launch, one CTA a candidate.
+//
+// Replaces XLA code with no pallas_call: the reference's per-candidate
+// program in kubernetes_autoscaler_tpu/ops/drain.py:232-347 (`one_candidate`:
+// the window gather, the compaction into K group slots, the `lax.scan` of
+// the K-step first fit at :312-325 and the per-pod destinations by
+// `searchsorted`), run under `lax.map(vmap(...))` at :352, and its reason
+// pass at :438-492 (`_failure_reasons_jit`, the same scan at :473 under the
+// map at :492). For candidate c, as ops/kernels/drain_kernel.sweep_plain
+// computes it:
+//   window   the MPN places of pad_order from starts[c]; a place is on c
+//            when its pod is valid and sits on c; movable and blocker from
+//            the pod's flags
+//   compact  the movable pods' groups in group-index order, the first K of
+//            them a slot each (gidx, cnt_k); groups beyond K never place
+//   fit      slot j of group g with want = cnt_k[j], per node n in order:
+//            min over r with req[g,r] > 0 of max(free[n,r], 0) / req[g,r]
+//            (BIG = 2^30 without one), 0 unless feas[g,n], dest_ok[n] and
+//            n != c, at most 1 with limit_one[g], at most want;
+//            place = clip(want - exclusive_prefix(fit), 0, fit); free[n]
+//            -= place * req[g] for the later slots
+//   outputs  n_moved, n_failed, drainable, has_blocker, and per window
+//            place the first node where its group's cumulative placement
+//            reaches its rank among the group's pods + 1 (-1 where it does
+//            not, or the group overflowed K), and the pod's index (-1 off
+//            c); or, explaining, the reason code, the first group with
+//            unplaced pods and the unplaced count.
+// All arithmetic is int32 with the plain version's wrap-around, so the
+// result is byte-equal to the plain version, not close to it.
+//
+// What bounds it. Not bytes: the outputs are 2 x C x MPN int32 (5 MB at
+// C = 5,120, MPN = 128) and the shared inputs (the free plane, 164 KB at
+// N = 5,120, R = 8; the predicate plane, 328 KB at G = 64) stay in the
+// 50 MB L2 across candidates. The reference's scan costs K x N x R fit
+// operations a candidate (671 M a candidate row at [main]'s widths, over
+// 5,120 candidates); the data needs far fewer, since a slot is done at the
+// node where its running fit reaches its count. The plain version pays the
+// K x N x R plane in device memory (a [C, N, R] int32 plane of 210 MB a
+// chunk rewritten every slot) and ≈ 1,300 small launches a sweep.
+//
+// The design. One CTA of 256 threads (more only for a window of more than
+// 256 places) runs one candidate to its end: the window, one place a
+// thread; the compaction in shared memory over the movable pods only
+// (O(movable^2) compares, as the reference's tril count); then the slots in
+// turn, each sweeping the nodes in tiles of 4 nodes a thread with one
+// block-wide exclusive scan a tile (one barrier, double-buffered warp
+// totals), stopping after the tile where the running fit reaches the
+// slot's count. The free plane is never copied: a candidate changes free
+// capacity only where it places its own pods, at most MPN nodes, so a
+// node's free row is the shared plane read through the read-only cache
+// less the candidate's debit row for that node, kept in shared memory
+// (a u16 node -> debit-row index, 2N bytes, and at most MPN rows). Each
+// placement is recorded as a run (node, slot, its rank interval
+// [exclusive prefix, + place)) in shared memory, and a window place finds
+// its destination as the run of its slot whose interval holds its rank: no
+// [C, N] placement curve and no searchsorted. A node of a slot belongs to
+// one thread, so its debit row needs no atomic; rows and runs are taken
+// with shared-memory atomics on two counters.
+//
+// Contract (checked by the Python wrapper): int32 and uint8 (bool)
+// contiguous tensors; candidates [C] in [0, N); starts [N]; pad_order
+// [P + MPN]; node_idx, group_ref, valid, movable, blocks [P]; free [N, R];
+// feas [G, N]; dest_ok [N]; limit_one [G]; req [G, R]; outputs [C] each
+// and dest_node, pod_slot [C, MPN]; `nodes` a u64 counter that each
+// candidate adds the nodes its slots' first fits needed to (a slot that
+// places its count: up to the node where the running fit reaches it; one
+// that does not: all N). A movable pod's group must lie in [0, G) (the
+// kernel leaves any other pod unmovable). Launches on the given stream and
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include <mutex>
+
+#include "pack_row.cuh"
+
+namespace {
+
+using namespace ka;
+
+enum Field {
+  kCand, kStarts, kPadOrder, kNodeIdx, kGroupRef, kValid, kMovable, kBlocks, kFree, kFeas,
+  kDestOk, kLimit, kReq, kOut0, kOut1, kOut2, kOut3, kDest, kPodSlot, kNodes, kNumFields
+};
+
+struct Params {
+  const void* ptr[kNumFields];
+};
+
+// ops/kernels/drain_kernel.DRAIN_*
+constexpr int kReasonOk = 0;
+constexpr int kReasonBlocked = 1;
+constexpr int kReasonNoPlace = 2;
+constexpr int kReasonTooMany = 3;
+
+constexpr int kNodesPerThread = 4;
+constexpr int kDrainThreads = 256;
+
+// indices into the shared scalar block
+enum Misc { kRuns, kRows, kCross, kNumMisc };
+
+// byte offsets of the shared-memory arrays
+struct Layout {
+  size_t scan, misc, req, mul, sh, gidx, cnt, placed, mg, mb, mj, cidx, rnode, rlo, rhi, rslot,
+      debit, idx, end;
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+__host__ __device__ inline Layout layout(int N, int R, int MPN, int K) {
+  const size_t r4 = static_cast<size_t>(R) * 4, k4 = static_cast<size_t>(K) * 4,
+               m4 = static_cast<size_t>(MPN) * 4;
+  Layout l;
+  l.scan = 0;                     // u32 [2][32] warp totals, double-buffered
+  l.misc = l.scan + 2 * 32 * 4;   // i32 [kNumMisc]
+  l.req = l.misc + 4 * 4;         // i32 [R] the slot's request
+  l.mul = l.req + r4;             // u32 [R] its multipliers
+  l.sh = l.mul + r4;              // i32 [R] its shift codes
+  l.gidx = l.sh + r4;             // i32 [K] group of each slot
+  l.cnt = l.gidx + k4;            // i32 [K] pods of each slot
+  l.placed = l.cnt + k4;          // i32 [K] pods each slot placed
+  l.mg = l.placed + k4;           // i32 [MPN] group of each movable pod
+  l.mb = l.mg + m4;               // i32 [MPN] its rank in its group
+  l.mj = l.mb + m4;               // i32 [MPN] its slot (K: overflow)
+  l.cidx = l.mj + m4;             // i32 [MPN] movable index of each place (-1)
+  l.rnode = l.cidx + m4;          // i32 [MPN] node of each run
+  l.rlo = l.rnode + m4;           // i32 [MPN] first rank it takes
+  l.rhi = l.rlo + m4;             // i32 [MPN] one past its last rank
+  l.rslot = l.rhi + m4;           // i32 [MPN] its slot
+  l.debit = l.rslot + m4;         // i32 [MPN][R] debit rows
+  l.idx = align16(l.debit + m4 * R);  // u16 [N] debit row + 1 of each node (0: none)
+  l.end = align16(l.idx + static_cast<size_t>(N) * 2);
+  return l;
+}
+
+// the CTA size for a window of MPN places: 256, or as many as cover a
+// larger window (-1 beyond 1,024)
+inline int drain_threads(int MPN) {
+  if (MPN <= kDrainThreads) return kDrainThreads;
+  const int t = ((MPN + 31) / 32) * 32;
+  return t > kMaxThreads ? -1 : t;
+}
+
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ unsigned warp_incl(unsigned x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(kFullMask, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int R, int G, int P,
+                                                            int MPN, int K, int explain) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = layout(N, R, MPN, K);
+  unsigned* s_scan = reinterpret_cast<unsigned*>(smem + L.scan);
+  int* misc = reinterpret_cast<int*>(smem + L.misc);
+  int* s_req = reinterpret_cast<int*>(smem + L.req);
+  unsigned* s_mul = reinterpret_cast<unsigned*>(smem + L.mul);
+  int* s_sh = reinterpret_cast<int*>(smem + L.sh);
+  int* gidx = reinterpret_cast<int*>(smem + L.gidx);
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);
+  int* placed = reinterpret_cast<int*>(smem + L.placed);
+  int* mg = reinterpret_cast<int*>(smem + L.mg);
+  int* mb = reinterpret_cast<int*>(smem + L.mb);
+  int* mj = reinterpret_cast<int*>(smem + L.mj);
+  int* cidx = reinterpret_cast<int*>(smem + L.cidx);
+  int* rnode = reinterpret_cast<int*>(smem + L.rnode);
+  int* rlo = reinterpret_cast<int*>(smem + L.rlo);
+  int* rhi = reinterpret_cast<int*>(smem + L.rhi);
+  int* rslot = reinterpret_cast<int*>(smem + L.rslot);
+  int* debit = reinterpret_cast<int*>(smem + L.debit);
+  unsigned short* idx = reinterpret_cast<unsigned short*>(smem + L.idx);
+
+  const int* __restrict__ cand = static_cast<const int*>(p.ptr[kCand]);
+  const int* __restrict__ starts = static_cast<const int*>(p.ptr[kStarts]);
+  const int* __restrict__ pad_order = static_cast<const int*>(p.ptr[kPadOrder]);
+  const int* __restrict__ node_idx = static_cast<const int*>(p.ptr[kNodeIdx]);
+  const int* __restrict__ group_ref = static_cast<const int*>(p.ptr[kGroupRef]);
+  const unsigned char* __restrict__ valid = static_cast<const unsigned char*>(p.ptr[kValid]);
+  const unsigned char* __restrict__ movable = static_cast<const unsigned char*>(p.ptr[kMovable]);
+  const unsigned char* __restrict__ blocks = static_cast<const unsigned char*>(p.ptr[kBlocks]);
+  const int* __restrict__ free0 = static_cast<const int*>(p.ptr[kFree]);
+  const unsigned char* __restrict__ feas = static_cast<const unsigned char*>(p.ptr[kFeas]);
+  const unsigned char* __restrict__ dest_ok = static_cast<const unsigned char*>(p.ptr[kDestOk]);
+  const unsigned char* __restrict__ limit_one = static_cast<const unsigned char*>(p.ptr[kLimit]);
+  const int* __restrict__ req = static_cast<const int*>(p.ptr[kReq]);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int ci = blockIdx.x;
+  const int c = cand[ci];
+  const bool c_ok = c >= 0 && c < N;
+
+  for (int i = tid; i < N; i += blockDim.x) idx[i] = 0;
+  if (tid < kNumMisc) misc[tid] = 0;
+
+  // 1. the window: one place a thread
+  int slot = -1, g = G;
+  bool on = false, mov = false, blk = false;
+  if (tid < MPN && c_ok) {
+    slot = pad_order[starts[c] + tid];
+    if (slot >= 0 && slot < P) {
+      on = node_idx[slot] == c && valid[slot];
+      mov = on && movable[slot];
+      blk = on && blocks[slot];
+      if (mov) {
+        g = group_ref[slot];
+        if (g < 0 || g >= G) mov = false;
+      }
+    }
+  }
+  if (!explain && tid < MPN)
+    static_cast<int*>(const_cast<void*>(p.ptr[kPodSlot]))[static_cast<size_t>(ci) * MPN + tid] =
+        on ? slot : -1;
+  // the movable pods, compacted in window order
+  const unsigned bal = __ballot_sync(kFullMask, mov);
+  if (lane == 0) s_scan[warp] = static_cast<unsigned>(__popc(bal));
+  const bool blocker = __syncthreads_or(blk) != 0;
+  int before_w = 0, n_mov = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    const int v = static_cast<int>(s_scan[w]);
+    if (w < warp) before_w += v;
+    n_mov += v;
+  }
+  if (tid < MPN) {
+    const int m = mov ? before_w + __popc(bal & ((1u << lane) - 1u)) : -1;
+    cidx[tid] = m;
+    if (mov) mg[m] = g;
+  }
+  __syncthreads();
+
+  // 2. the compaction: each movable pod's rank in its group and count of
+  // its group, then its group's rank among the groups present
+  int my_g = G, my_before = 0, my_cnt = 0;
+  if (tid < n_mov) {
+    my_g = mg[tid];
+    for (int q = 0; q < n_mov; ++q)
+      if (mg[q] == my_g) {
+        ++my_cnt;
+        if (q < tid) ++my_before;
+      }
+    mb[tid] = my_before;
+  }
+  __syncthreads();
+  if (tid < n_mov) {
+    int rank = 0;
+    for (int q = 0; q < n_mov; ++q)
+      if (mb[q] == 0 && mg[q] < my_g) ++rank;
+    mj[tid] = rank < K ? rank : K;
+    if (my_before == 0 && rank < K) {
+      gidx[rank] = my_g;
+      cnt[rank] = my_cnt;
+    }
+  }
+  const int n_groups = __syncthreads_count(tid < n_mov && my_before == 0);
+  const int filled = n_groups < K ? n_groups : K;
+
+  // 3. the K-step first fit, slot by slot
+  unsigned long long needed = 0;  // thread 0's sum of the nodes the slots needed
+  unsigned parity = 0;
+  const int tile = blockDim.x * kNodesPerThread;
+  for (int j = 0; j < filled; ++j) {
+    const int gi = gidx[j];
+    const int want = cnt[j];
+    if (tid < R) {
+      const int d = req[static_cast<size_t>(gi) * R + tid];
+      unsigned m;
+      int s;
+      divisor(d, m, s);
+      s_req[tid] = d;
+      s_mul[tid] = m;
+      s_sh[tid] = s;
+    }
+    const bool limit = limit_one[gi] != 0;
+    const unsigned char* __restrict__ frow = feas + static_cast<size_t>(gi) * N;
+    __syncthreads();
+    int running = 0;
+    for (int base = 0; base < N && running < want; base += tile) {
+      const int n0 = base + tid * kNodesPerThread;
+      int f[kNodesPerThread];
+      unsigned tsum = 0;
+#pragma unroll
+      for (int i = 0; i < kNodesPerThread; ++i) {
+        const int n = n0 + i;
+        int v = 0;
+        if (n < N && n != c && dest_ok[n] && frow[n]) {
+          unsigned q = static_cast<unsigned>(kBig);
+          const int e = static_cast<int>(idx[n]) - 1;
+          const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
+          for (int r = 0; r < R; ++r) {
+            const int s = s_sh[r];
+            if (s == kNoLimit) continue;
+            int fr = __ldg(frw + r);
+            if (e >= 0) fr = wsub(fr, debit[e * R + r]);
+            q = min(q, quotient(fr, s_mul[r], s));
+          }
+          v = static_cast<int>(q);
+          if (limit) v = min(v, 1);
+          v = min(v, want);
+        }
+        f[i] = v;
+        tsum += static_cast<unsigned>(v);
+      }
+      // block exclusive scan of the threads' sums: one barrier
+      const unsigned inc = warp_incl(tsum, lane);
+      unsigned* sb = s_scan + (parity++ & 1u) * 32;
+      if (lane == 31) sb[warp] = inc;
+      __syncthreads();
+      const unsigned wv = lane < nwarps ? sb[lane] : 0u;
+      const unsigned wi = warp_incl(wv, lane);
+      const unsigned wbefore = __shfl_sync(kFullMask, wi - wv, warp);
+      const unsigned total = __shfl_sync(kFullMask, wi, 31);
+      int ex = running + static_cast<int>(wbefore + inc - tsum);
+#pragma unroll
+      for (int i = 0; i < kNodesPerThread; ++i) {
+        const int n = n0 + i;
+        const int v = f[i];
+        const int place = min(max(want - ex, 0), v);
+        if (place > 0) {
+          const int e = atomicAdd(&misc[kRuns], 1);
+          rnode[e] = n;
+          rlo[e] = ex;
+          rhi[e] = ex + place;
+          rslot[e] = j;
+          int row = static_cast<int>(idx[n]) - 1;
+          if (row < 0) {
+            row = atomicAdd(&misc[kRows], 1);
+            idx[n] = static_cast<unsigned short>(row + 1);
+            for (int r = 0; r < R; ++r) debit[row * R + r] = mul_wrap(place, s_req[r]);
+          } else {
+            for (int r = 0; r < R; ++r)
+              debit[row * R + r] = wadd(debit[row * R + r], mul_wrap(place, s_req[r]));
+          }
+          if (ex + v >= want) misc[kCross] = n;  // the running fit reaches want here
+        }
+        ex += v;
+      }
+      running += static_cast<int>(total);
+    }
+    __syncthreads();  // the slot's runs, debit rows and crossing node
+    if (tid == 0) {
+      placed[j] = min(running, want);
+      needed += running >= want ? static_cast<unsigned long long>(misc[kCross]) + 1ull
+                                : static_cast<unsigned long long>(N);
+    }
+  }
+  __syncthreads();  // placed[]
+
+  // 4. the outputs
+  if (tid == 0) {
+    int n_moved = 0, first_fail = -1;
+    for (int j = 0; j < filled; ++j) {
+      n_moved += placed[j];
+      if (first_fail < 0 && cnt[j] - placed[j] > 0) first_fail = j;
+    }
+    if (explain) {
+      const int reason = blocker            ? kReasonBlocked
+                         : first_fail >= 0  ? kReasonNoPlace
+                         : n_groups > K     ? kReasonTooMany
+                                            : kReasonOk;
+      static_cast<int*>(const_cast<void*>(p.ptr[kOut0]))[ci] = reason;
+      static_cast<int*>(const_cast<void*>(p.ptr[kOut1]))[ci] =
+          first_fail >= 0 ? gidx[first_fail] : -1;
+      static_cast<int*>(const_cast<void*>(p.ptr[kOut2]))[ci] = n_mov - n_moved;
+    } else {
+      const int n_failed = n_mov - n_moved;
+      static_cast<unsigned char*>(const_cast<void*>(p.ptr[kOut0]))[ci] =
+          !blocker && n_failed == 0;
+      static_cast<unsigned char*>(const_cast<void*>(p.ptr[kOut1]))[ci] = blocker;
+      static_cast<int*>(const_cast<void*>(p.ptr[kOut2]))[ci] = n_moved;
+      static_cast<int*>(const_cast<void*>(p.ptr[kOut3]))[ci] = n_failed;
+    }
+    if (needed)
+      atomicAdd(static_cast<unsigned long long*>(const_cast<void*>(p.ptr[kNodes])), needed);
+  }
+  if (!explain && tid < MPN) {
+    int d = -1;
+    const int m = cidx[tid];
+    if (m >= 0) {
+      const int j = mj[m], b = mb[m];
+      if (j < K && b < placed[j]) {
+        const int n_runs = misc[kRuns];
+        for (int e = 0; e < n_runs; ++e)
+          if (rslot[e] == j && rlo[e] <= b && b < rhi[e]) {
+            d = rnode[e];
+            break;
+          }
+      }
+    }
+    static_cast<int*>(const_cast<void*>(p.ptr[kDest]))[static_cast<size_t>(ci) * MPN + tid] = d;
+  }
+}
+
+}  // namespace
+
+// Per device, read once: the opt-in shared-memory limit, and the dynamic
+// shared-memory size the kernel's attribute allows so far.
+constexpr int kMaxDevices = 64;
+static std::mutex g_mu;
+static int g_max_smem[kMaxDevices];
+static size_t g_allowed[kMaxDevices];
+
+static int max_smem(int dev) {
+  if (g_max_smem[dev] == 0 &&
+      cudaDeviceGetAttribute(&g_max_smem[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return -1;
+  return g_max_smem[dev];
+}
+
+// The CTA size of a launch at (N, R, MPN, K) on the current device, or -1
+// when no launch fits (the window past 1,024 places, or the shared memory
+// past the device's opt-in limit).
+extern "C" int ka_drain_threads(int N, int R, int MPN, int K) {
+  if (N <= 0 || R <= 0 || MPN <= 0 || K <= 0) return -1;
+  const int threads = drain_threads(MPN);
+  if (threads < 0 || R > threads) return -1;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
+  std::lock_guard<std::mutex> lock(g_mu);
+  const int limit = max_smem(dev);
+  if (limit < 0 || layout(N, R, MPN, K).end > static_cast<size_t>(limit)) return -1;
+  return threads;
+}
+
+extern "C" int ka_drain(const void* const* ptrs, int C, int N, int R, int G, int P, int MPN, int K,
+                        int explain, void* stream) {
+  if (C <= 0) return 0;
+  const int threads = drain_threads(MPN);
+  if (N <= 0 || R <= 0 || G < 0 || P < 0 || MPN <= 0 || K <= 0 || threads < 0 || R > threads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  Params p;
+  for (int i = 0; i < kNumFields; ++i) p.ptr[i] = ptrs[i];
+  const size_t smem = layout(N, R, MPN, K).end;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    const int limit = max_smem(dev);
+    if (limit < 0 || smem > static_cast<size_t>(limit))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024 && smem > g_allowed[dev]) {
+      err = cudaFuncSetAttribute(drain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      g_allowed[dev] = smem;
+    }
+  }
+  drain_kernel<<<static_cast<unsigned>(C), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, N, R, G, P, MPN, K, explain);
+  return static_cast<int>(cudaGetLastError());
+}

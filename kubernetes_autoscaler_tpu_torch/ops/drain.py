@@ -1,16 +1,19 @@
 """Batched node-removal (drain) simulation for scale-down.
 
 Counterpart of the reference package's `ops/drain.py` (RemovalResult,
-simulate_removals). Every candidate node is simulated independently, in
-chunks of candidates:
+simulate_removals). Every candidate node is simulated independently:
 
   1. its resident movable pods are gathered from a by-node sorted window and
      compacted into at most K per-group counts,
   2. a K-step first-fit places each group's count onto the destination
-     nodes with the cumulative-fit trick (a Python loop over K on
-     [C, N, R] tensors; the reference leaves this step to XLA),
-  3. per-pod destinations are rebuilt from the groups' cumulative placement
-     curves by `searchsorted`, one call per slot.
+     nodes in node order, each slot seeing what the candidate's earlier
+     slots took,
+  3. per-pod destinations are read from the groups' cumulative placements.
+
+`sweep_inputs` is the placement-independent preparation, in plain torch;
+steps 1-3 are the drain kernel (ops/kernels/drain_kernel.sweep): on the
+card one launch for every candidate (`csrc/drain.cu`), on the CPU its plain
+version, in chunks of candidates.
 
 With `with_constraints` the re-placement is topology-aware: host-level
 gates join the predicate plane, the candidate's own residents leave its
@@ -18,14 +21,17 @@ zone's counts before its pods are re-placed (the reference's ghost node),
 and constrained groups re-place through the wave placer
 (ops/constrained.place_lanes), the candidates of a chunk being its lanes
 and `active` the (candidate, slot) lanes whose group is constrained and has
-pods, so the sweep itself reads nothing to the host. Only the
-gathered group of each (candidate, slot) is gated, as a [C, N] plane built
-from [C, Z] adjusted zone counts; no [C, G, N] plane is formed.
+pods, so the sweep itself reads nothing to the host. That sweep is the
+plain chunked loop (`drain_kernel.sweep_plain` with the topology) on either
+device. Only the gathered group of each (candidate, slot) is gated, as a
+[C, N] plane built from [C, Z] adjusted zone counts; no [C, G, N] plane is
+formed.
 
 A node with more than `max_groups_per_node` distinct shapes is reported
 undrainable (its overflow pods count in n_failed). The chunk size changes
-memory only, never results; by default it is worked out from
-`CHUNK_BYTES` and the world's N and R (`default_chunk`).
+the plain version's memory only, never results; by default it is worked
+out from `drain_kernel.CHUNK_BYTES` and the world's N and R
+(`default_chunk`).
 
 `failure_reasons` is the lazy explanation pass over the candidates the
 sweep reported undrainable: the same gather, compaction and first-fit
@@ -49,31 +55,22 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
 from kubernetes_autoscaler_tpu_torch.ops.constrained import (
     BIG,
     GroupConstraints,
-    place_lanes,
     zone_agg,
 )
-from kubernetes_autoscaler_tpu_torch.ops.pack import fit_count
+from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+from kubernetes_autoscaler_tpu_torch.ops.kernels.drain_kernel import (
+    DRAIN_BLOCKED_BY_POD,
+    DRAIN_NO_PLACE_FOR_GROUP,
+    DRAIN_OK,
+    DRAIN_TOO_MANY_SHAPES,
+    SweepInputs,
+    default_chunk,
+)
 from kubernetes_autoscaler_tpu_torch.ops.predicates import feasibility_mask
 from kubernetes_autoscaler_tpu_torch.ops.schedule import resident_group_counts
 
-# memory budget of one [C, N, R] int32 free-capacity plane of the first-fit
-CHUNK_BYTES = 256 * 2 ** 20
-
-
-def default_chunk(c_total: int, n: int, r: int) -> int:
-    """Candidates per chunk: as many as keep one [C, N, R] int32 plane
-    within CHUNK_BYTES, split evenly over the chunks that needs."""
-    most = max(1, CHUNK_BYTES // (n * r * 4))
-    n_chunks = max(1, -(-c_total // most))
-    return max(1, -(-c_total // n_chunks))
-
-
-# per-candidate drain failure reasons (the scale-down reason plane); codes
-# and names are the reference package's
-DRAIN_OK = 0
-DRAIN_BLOCKED_BY_POD = 1       # a pod forbids draining (drainability rules)
-DRAIN_NO_PLACE_FOR_GROUP = 2   # fail_group says WHICH pod shape found no room
-DRAIN_TOO_MANY_SHAPES = 3      # > max_groups_per_node distinct shapes resident
+# the reference package's names of the per-candidate drain failure reasons
+# (the scale-down reason plane); the codes are drain_kernel's
 DRAIN_REASON_NAMES = {
     DRAIN_OK: "",
     DRAIN_BLOCKED_BY_POD: "BlockedByPod",
@@ -154,150 +151,66 @@ def failure_reasons(
                   explain=True)
 
 
-def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
-           max_pods_per_node, chunk, max_groups_per_node, explain: bool,
-           planes: AffinityPlanes | None = None, max_zones: int = 16):
-    """The chunked sweep behind both entry points: RemovalResult, or with
-    `explain` the RemovalReasons of the same first-fit. `planes` turns on
-    the topology-aware re-placement."""
+def sweep_inputs(nodes: NodeTensors, specs: PodGroupTensors,
+                 scheduled: ScheduledPodTensors, candidates: torch.Tensor,
+                 dest_allowed: torch.Tensor, max_pods_per_node: int,
+                 topo: "_Topology | None" = None) -> SweepInputs:
+    """The placement-independent preparation of the sweep, in plain torch:
+    the predicate plane (with the topology's host gates), the allowed
+    destinations, and the resident pods sorted by node so that each
+    candidate's pods are one window of `pad_order`."""
     n = nodes.n
-    g_total = specs.g
     mpn = max_pods_per_node
-    kk = max_groups_per_node
     dev = nodes.cap.device
     i32 = torch.int32
 
-    # shared predicate plane, placement-independent
     feas_gn = feasibility_mask(nodes, specs, check_resources=False)
-    resident = resident_group_counts(scheduled, g_total, n)
+    resident = resident_group_counts(scheduled, specs.g, n)
     feas_gn = feas_gn & ~(specs.anti_affinity_self[:, None] & (resident > 0))
-    limit_g = specs.one_per_node()
-    free0 = nodes.free()
-    dest_ok = dest_allowed & nodes.valid & nodes.ready & nodes.schedulable
-    node_ids = torch.arange(n, dtype=i32, device=dev)
-    topo = _Topology(nodes, specs, planes, max_zones) if planes is not None \
-        else None
     if topo is not None:
         feas_gn = feas_gn & topo.host_gate
+    dest_ok = dest_allowed & nodes.valid & nodes.ready & nodes.schedulable
 
     # resident pods sorted by node: each candidate's pods are one window
     sort_key = torch.where(scheduled.valid, scheduled.node_idx, n + 1)
     pod_order = torch.argsort(sort_key, stable=True).to(i32)
     sorted_nodes = sort_key[pod_order]
-    starts = torch.searchsorted(sorted_nodes, node_ids).to(i32)
+    starts = torch.searchsorted(sorted_nodes,
+                                torch.arange(n, dtype=i32, device=dev)).to(i32)
     pad_order = torch.cat([pod_order, torch.full((mpn,), -1, dtype=i32, device=dev)])
-    window = torch.arange(mpn, dtype=torch.int64, device=dev)
-    slot_k = torch.arange(kk, device=dev)
-    group_ids = torch.arange(g_total, dtype=i32, device=dev)
+    return SweepInputs(
+        candidates=candidates.to(i32).contiguous(), starts=starts,
+        pad_order=pad_order, node_idx=scheduled.node_idx.contiguous(),
+        group_ref=scheduled.group_ref.contiguous(),
+        valid=scheduled.valid.contiguous(),
+        movable=scheduled.movable.contiguous(),
+        blocks=scheduled.blocks.contiguous(), free=nodes.free().contiguous(),
+        feas=feas_gn.contiguous(), dest_ok=dest_ok.contiguous(),
+        limit_one=specs.one_per_node().contiguous(),
+        req=specs.req.contiguous())
 
-    c_total = int(candidates.shape[0])
-    chunk = chunk or default_chunk(c_total, n, free0.shape[1])
-    pad_c = max(((c_total + chunk - 1) // chunk) * chunk, chunk)
-    cand_pad = torch.cat([candidates.to(i32),
-                          torch.zeros((pad_c - c_total,), dtype=i32, device=dev)])
 
-    outs = []
-    for c0 in range(0, pad_c, chunk):
-        c = cand_pad[c0:c0 + chunk]                                   # [C]
-        cn = c.shape[0]
-        slots = pad_order[starts[c].long()[:, None] + window[None, :]]  # [C, MPN]
-        safe = slots.clamp(min=0).long()
-        on_c = ((slots >= 0) & (scheduled.node_idx[safe] == c[:, None])
-                & scheduled.valid[safe])
-        movable = on_c & scheduled.movable[safe]
-        blocker = (on_c & scheduled.blocks[safe]).any(dim=1)
-
-        # --- compact this node's movable pods into K group slots ---
-        gref = torch.where(movable, scheduled.group_ref[safe], g_total)  # sentinel
-        counts = torch.zeros((cn, g_total + 1), dtype=i32, device=dev)
-        counts.scatter_add_(1, gref.long(), movable.to(i32))
-        nz = counts[:, :g_total] > 0                                   # [C, G]
-        rank = torch.cumsum(nz, dim=1) - 1
-        compact_of_g = torch.where(nz & (rank < kk), rank, kk)          # [C, G]
-        # only the sentinel slot kk can repeat in this scatter, and it is
-        # sliced away, so the unspecified order of repeated writes is harmless
-        gidx = torch.zeros((cn, kk + 1), dtype=i32, device=dev)
-        gidx.scatter_(1, compact_of_g, group_ids.expand(cn, g_total))
-        gidx = gidx[:, :kk].long()                                     # [C, K]
-        filled = slot_k[None, :] < nz.sum(dim=1).clamp(max=kk)[:, None]
-        cnt_k = torch.where(filled, torch.gather(counts[:, :g_total], 1, gidx), 0)
-
-        dest = dest_ok[None, :] & (node_ids[None, :] != c[:, None])    # [C, N]
-        if topo is not None:
-            # the (candidate, slot) lanes with a wave loop to run, on the
-            # device: place_lanes' `active`
-            slow = (topo.is_con[gidx] & (cnt_k > 0)).T.contiguous()    # [K, C]
-
-        # --- K-step first-fit of whole groups onto destinations ---
-        free_c = free0.expand(cn, n, free0.shape[1])
-        placed_k, cumplace_k = [], []
-        for j in range(kk):
-            gi = gidx[:, j]
-            want = cnt_k[:, j]
-            reqg = specs.req[gi]                                       # [C, R]
-            feas_row = feas_gn[gi] & dest
-            if topo is not None:
-                feas_row = feas_row & topo.zone_gate(gi, c.long())
-            fit = fit_count(free_c, reqg)                              # [C, N]
-            fit = torch.where(feas_row, fit, 0)
-            fit = torch.where(limit_g[gi][:, None], fit.clamp(max=1), fit)
-            fit = torch.minimum(fit, want[:, None])
-            cum = torch.cumsum(fit, dim=1)
-            place = torch.minimum((want[:, None] - (cum - fit)).clamp(min=0), fit)
-            place = place.to(i32)
-            new_free = free_c - place[:, :, None] * reqg[:, None, :]
-            if topo is not None:
-                # the lanes whose group is constrained and has pods re-place
-                # by waves, over the first fit's result in place
-                place_lanes(free_c, feas_row, reqg, want.contiguous(),
-                            limit_g[gi],
-                            topo.lane_constraints(gi, c.long()), max_zones,
-                            active=slow[j], out=(new_free, place))
-            free_c = new_free
-            placed_k.append(place.sum(dim=1))
-            cumplace_k.append(torch.cumsum(place, dim=1))
-        placed_k = torch.stack(placed_k, dim=1)                        # [C, K]
-        if explain:
-            outs.append(_explain(blocker, movable, nz, gidx, cnt_k, placed_k,
-                                 kk))
-            continue
-        n_moved = placed_k.sum(dim=1).to(i32)
-        n_failed = (movable.sum(dim=1) - n_moved).to(i32)
-        drainable = ~blocker & (n_failed == 0)
-
-        # --- per-pod destinations from the placement curves ---
-        same = (gref[:, :, None] == gref[:, None, :]) \
-            & movable[:, :, None] & movable[:, None, :]
-        before = torch.tril(same, -1).sum(dim=2)                       # [C, MPN]
-        j_of_slot = torch.gather(
-            torch.cat([compact_of_g,
-                       torch.full((cn, 1), kk, dtype=compact_of_g.dtype,
-                                  device=dev)], dim=1),
-            1, gref.long())
-        dests = torch.full((cn, mpn), -1, dtype=i32, device=dev)
-        for j in range(kk):
-            d_j = torch.searchsorted(cumplace_k[j], before + 1).to(i32)
-            hit = movable & (j_of_slot == j) & (before < placed_k[:, j][:, None])
-            dests = torch.where(hit, d_j, dests)
-        pod_slot = torch.where(on_c, safe.to(i32), -1)
-        outs.append((drainable, blocker, n_moved, n_failed, dests, pod_slot))
-
+def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
+           max_pods_per_node, chunk, max_groups_per_node, explain: bool,
+           planes: AffinityPlanes | None = None, max_zones: int = 16):
+    """The sweep behind both entry points: RemovalResult, or with `explain`
+    the RemovalReasons of the same first fit. Without `planes` it is the
+    drain kernel's wrapper (`drain_kernel.sweep`: one launch on the card,
+    the plain version on the CPU); `planes` turns on the topology-aware
+    re-placement, the plain chunked sweep with the wave placer in its
+    constrained slots."""
+    topo = _Topology(nodes, specs, planes, max_zones) if planes is not None \
+        else None
+    inp = sweep_inputs(nodes, specs, scheduled, candidates, dest_allowed,
+                       max_pods_per_node, topo)
+    if topo is None:
+        out = drain_kernel.sweep(inp, max_groups_per_node, explain, chunk)
+    else:
+        out = drain_kernel.sweep_plain(inp, max_groups_per_node, explain,
+                                       chunk, topo=topo, max_zones=max_zones)
     if explain:
-        reason, fail_group, n_unplaced = (
-            torch.cat(parts)[:c_total] for parts in zip(*outs))
-        return RemovalReasons(reason=reason, fail_group=fail_group,
-                              n_unplaced=n_unplaced)
-    drainable, blocker, n_moved, n_failed, dests, pod_slot = (
-        torch.cat(parts)[:c_total] for parts in zip(*outs))
-    return RemovalResult(
-        drainable=drainable,
-        has_blocker=blocker,
-        n_moved=n_moved,
-        n_failed=n_failed,
-        dest_node=dests,
-        pod_slot=pod_slot,
-        feas=feas_gn,
-    )
+        return RemovalReasons(*out)
+    return RemovalResult(*out, feas=inp.feas)
 
 
 class _Topology:
@@ -387,22 +300,3 @@ class _Topology:
             min_host_base=torch.full(gi.shape, BIG,
                                      dtype=torch.int32, device=gi.device),
             zone_cl=self.zcl[None, :], zone_valid=self.zval[None, :])
-
-
-def _explain(blocker, movable, nz, gidx, cnt_k, placed_k, kk):
-    """One chunk's failure attribution: (reason, fail_group, n_unplaced),
-    each i32[C]."""
-    i32 = torch.int32
-    unplaced_k = cnt_k - placed_k                                  # [C, K]
-    scan_fail = (unplaced_k > 0).any(dim=1)
-    # argmax of a bool row: the first True (0 when none, then unused)
-    first_j = (unplaced_k > 0).to(i32).argmax(dim=1)
-    fail_group = torch.where(
-        scan_fail, torch.gather(gidx, 1, first_j[:, None].long())[:, 0], -1)
-    n_unplaced = movable.sum(dim=1) - placed_k.sum(dim=1)
-    overflow = nz.sum(dim=1) > kk
-    reason = torch.where(
-        blocker, DRAIN_BLOCKED_BY_POD,
-        torch.where(scan_fail, DRAIN_NO_PLACE_FOR_GROUP,
-                    torch.where(overflow, DRAIN_TOO_MANY_SHAPES, DRAIN_OK)))
-    return reason.to(i32), fail_group.to(i32), n_unplaced.to(i32)

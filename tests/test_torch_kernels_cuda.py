@@ -4,8 +4,9 @@ on the card.
 Imports neither JAX nor the JAX package, so it runs where only PyTorch is
 installed: `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py`.
 Without a CUDA device every test skips. Tolerance: none (integer outputs,
-the constrained wave placer's int32 wrap-around included; the histogram
-scatter's f32 sums are added in the same order as the plain version's).
+the constrained wave placer's and the drain sweep's int32 wrap-around
+included; the histogram scatter's f32 sums are added in the same order as
+the plain version's). `-k drain` runs the drain sweep's alone.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_autoscaler_tpu_torch.ops import pack
+from kubernetes_autoscaler_tpu_torch.ops import drain, pack
 from kubernetes_autoscaler_tpu_torch.ops.kernels import (
     con_cases,
     constrained_kernel,
+    drain_cases,
+    drain_kernel,
     hist_cases,
     histogram_kernel,
     pack_cases,
@@ -416,3 +419,117 @@ def test_constrained_kernel_rejects_what_it_does_not_take(cuda):
         g(free, mask, req, count, order.cpu(), limit, cons, z)
     with pytest.raises(ValueError):
         g(free, mask, req, count, order, limit, cons, z + 1)
+
+
+def _drain_equal(inp, kk, plain_device=None):
+    """The kernel on `inp` (CUDA tensors) against the plain version (on
+    `plain_device`, the CPU by default), in both modes: one launch each."""
+    dev = torch.device(plain_device or "cpu")
+    for explain in (False, True):
+        want = drain_kernel.sweep_plain(inp.to(dev), kk, explain)
+        before = drain_kernel.launch.launches
+        got = drain_kernel.sweep(inp, kk, explain)
+        torch.cuda.synchronize()
+        assert drain_kernel.launch.launches == before + 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, (explain, k)
+            assert torch.equal(g.cpu(), w.cpu()), \
+                f"output {k} (explain={explain}) differs from the plain version"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(drain_cases.CASES))
+def test_drain_kernel_cases(cuda, name):
+    case = drain_cases.CASES[name]().to(cuda)
+    _drain_equal(case.inputs(), case.max_groups_per_node)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["main", "loop", "sidecar", "gate"])
+def test_drain_kernel_main_path_shapes(cuda, shape):
+    """[main]'s sweep (N = 5,120, G = 64, MPN = 128, K = 16, every node a
+    candidate), the loop's MPN = 16, a sidecar large lane's N = 8,192, the
+    what-if gate's N = 48; the plain version on the card."""
+    case = {
+        "main": lambda: drain_cases.world(0, 5120, 64, 128),
+        "loop": lambda: drain_cases.world(1, 5120, 64, 16),
+        "sidecar": lambda: drain_cases.world(2, 8192, 64, 128),
+        "gate": lambda: drain_cases.world(3, 48, 64, 128),
+    }[shape]().to(cuda)
+    _drain_equal(case.inputs(), case.max_groups_per_node, plain_device=cuda)
+
+
+@pytest.mark.cuda
+def test_drain_kernel_one_launch_a_sweep_and_no_host_read(cuda):
+    """`simulate_removals` and `failure_reasons` on CUDA tensors: one launch
+    each, equal to the CPU's, nothing read back to the host; no candidate,
+    no launch."""
+    case = drain_cases.CASES["spill"]()
+    kw = dict(max_pods_per_node=case.max_pods_per_node,
+              max_groups_per_node=case.max_groups_per_node)
+    args = (case.nodes, case.specs, case.scheduled, case.candidates,
+            case.dest_allowed)
+    want = (drain.simulate_removals(*args, **kw),
+            drain.failure_reasons(*args, **kw))
+    card = case.to(cuda)
+    args = (card.nodes, card.specs, card.scheduled, card.candidates,
+            card.dest_allowed)
+    before = drain_kernel.launch.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = (drain.simulate_removals(*args, **kw),
+               drain.failure_reasons(*args, **kw))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert drain_kernel.launch.launches == before + 2
+    for w, g in zip(want, got):
+        for k, v in vars(w).items():
+            assert torch.equal(getattr(g, k).cpu(), v), k
+    none = card.candidates[:0]
+    res = drain.simulate_removals(*args[:3], none, args[4], **kw)
+    assert drain_kernel.launch.launches == before + 2
+    assert res.dest_node.shape == (0, case.max_pods_per_node)
+
+
+@pytest.mark.cuda
+def test_drain_kernel_counts_the_nodes_its_slots_need(cuda):
+    """No allowed destination: every filled slot needs all N nodes."""
+    case = drain_cases.CASES["no_destination"]()
+    inp = case.inputs()
+    kk = case.max_groups_per_node
+    _, _, _, n_failed, _, _ = drain_kernel.sweep_plain(inp, kk, False)
+    counter = drain_kernel.node_counter(cuda)
+    counter.zero_()
+    drain_kernel.sweep(inp.to(cuda), kk, False)
+    torch.cuda.synchronize()
+    # a failed candidate's filled slots each swept every node
+    slots = 0
+    for c, nf in zip(inp.candidates.tolist(), n_failed.tolist()):
+        if nf:
+            on = (inp.node_idx == c) & inp.valid & inp.movable
+            slots += min(len(set(inp.group_ref[on].tolist())), kk)
+    assert int(counter) == slots * inp.free.shape[0]
+
+
+@pytest.mark.cuda
+def test_drain_kernel_rejects_what_it_does_not_take(cuda):
+    case = drain_cases.CASES["mixed"]().to(cuda)
+    inp = case.inputs()
+    f = drain_kernel.sweep
+    with pytest.raises(TypeError):
+        f(inp.replace(req=inp.req.long()), 4, False)
+    with pytest.raises(ValueError):
+        f(inp.replace(feas=inp.feas.cpu()), 4, False)
+    with pytest.raises(ValueError):
+        f(inp.replace(node_idx=inp.node_idx[:-1]), 4, False)
+    with pytest.raises(ValueError):
+        f(inp.replace(free=inp.free.t().contiguous().t()), 4, False)
+    # a window past 1,024 places, and shared memory past the card's limit
+    wide = torch.cat([inp.pad_order,
+                      torch.full((1100,), -1, dtype=torch.int32, device=cuda)])
+    with pytest.raises(ValueError):
+        f(inp.replace(pad_order=wide), 4, False)
+    n = 200_000
+    with pytest.raises(ValueError):
+        drain_kernel.threads(n, 4, 16, 4)

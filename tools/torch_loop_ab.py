@@ -12,7 +12,9 @@ churn script and clock for every tree, so two trees compare within one call
 (give them as parent, change, change, parent). Prints one JSON line per run
 (the tree, the timed loops' ms, p50 and p90, the card) and needs a card.
 With `--phase main` each run is `chip_smoke.main_phase` instead (the fused
-step on the main world, 100 steps; the line holds the step p50 and p90 that
+step on the main world, 100 steps, then one step under torch.profiler; the
+line holds the step p50 and p90, the scale_down phase's p50 and p90, the
+device kernels a step, the busy share and the drain kernel's launches that
 the phase prints). With `--phase constrained` each run is the constrained
 fused step (`chip_smoke.constrained_steps` on `constrained_world`: step and
 filter-phase p50/p90, then one step under torch.profiler: device kernels a
@@ -62,15 +64,27 @@ elif sys.argv[3] == "loop-constrained":
                       "p50": c.pct(ms, 50), "p90": c.pct(ms, 90),
                       "shares": shares, "card": card}))
 elif sys.argv[3] == "main":
-    import argparse, contextlib, io, re
+    import argparse, contextlib, io, re, tempfile
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        c.main_phase(argparse.Namespace(profile=None), Dims(), k1, k1_plain)
+        c.main_phase(argparse.Namespace(profile=tempfile.mkdtemp()), Dims(), k1, k1_plain)
+    text = out.getvalue()
+    print(text, file=sys.stderr)
     p50, p90 = map(float, re.search(r"\\[main\\] step ms over \\d+ steps: p50 (\\S+) p90 (\\S+)",
-                                    out.getvalue()).groups())
-    print(json.dumps({"tree": tree, "phase": "main", "p50": p50, "p90": p90, "card": card}))
+                                    text).groups())
+    down50, down90 = map(float, re.search(
+        r"\\[main\\] phase scale_down ms \\(CUDA events\\): p50 (\\S+) p90 (\\S+)", text).groups())
+    kernels, busy = re.search(r"\\[profile\\] (\\d+) device kernels in one step, \\S+ ms of "
+                              r"kernel time; busy share of the unprofiled step p50 (\\S+)",
+                              text).groups()
+    drain = re.search(r"\\[main\\] drain kernel launches: (\\d+)", text)
+    print(json.dumps({"tree": tree, "phase": "main", "p50": p50, "p90": p90,
+                      "scale_down_p50": down50, "scale_down_p90": down90,
+                      "kernels": int(kernels), "busy": float(busy),
+                      "drain_launches": int(drain.group(1)) if drain else None,
+                      "card": card}))
 else:
-    _, _, _, (ms, _) = c.loop_phase(card, Dims(), k1, k1_plain)
+    _, _, _, (ms, _), _ = c.loop_phase(card, Dims(), k1, k1_plain)
     print(json.dumps({"tree": tree, "ms": ms, "p50": c.pct(ms, 50),
                       "p90": c.pct(ms, 90), "card": card}))
 """
