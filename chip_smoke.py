@@ -930,6 +930,99 @@ def drain_bound(inp, nodes_needed):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_drain_topo(name, inp, topo, kk) -> tuple[int, int, int]:
+    """Byte equality of the drain kernel's topology mode with the plain
+    version on the card, in both modes; returns (max abs difference, the
+    plain version's active lanes of the sweep, the kernel's waved lanes)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+
+    err = 0
+    counter = drain_kernel.wave_counter(DEVICE)
+    for explain in (False, True):
+        lanes = drain_kernel.sweep_plain.active_lanes
+        want = drain_kernel.sweep_plain(inp, kk, explain, topo=topo)
+        lanes = drain_kernel.sweep_plain.active_lanes - lanes
+        counter.zero_()
+        got = drain_kernel.sweep(inp, kk, explain, topo=topo)
+        torch.cuda.synchronize()
+        waved = int(counter[1])
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{name}: output {k} (explain={explain}) "
+                                     f"{g.dtype}{tuple(g.shape)} vs "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: output {k} (explain={explain}) "
+                                     f"differs from the plain version")
+        if waved != lanes:
+            raise AssertionError(f"{name}: the kernel waved {waved} lanes, the "
+                                 f"plain version {lanes}")
+        if not explain:
+            sweep_lanes = lanes
+    n, r = inp.free.shape
+    log(f"[kernels] drain sweep topology mode == plain: {name} "
+        f"(C={inp.candidates.shape[0]} N={n} R={r} G={inp.req.shape[0]} "
+        f"MPN={inp.mpn} K={kk} Z={topo.max_zones}), the sweep and the reason "
+        f"pass; {sweep_lanes} (candidate, slot) lanes re-placed by waves")
+    return err, sweep_lanes, waved
+
+
+def drain_topo_bound(inp, topo, nodes_needed, lane_waves):
+    """(bound ms, 'bytes'|'operations') of one topology-mode sweep on these
+    inputs: each input (the sweep's and the topology's) read once, each
+    output written once; the first fits' operations as `drain_bound`'s,
+    and on every node of every wave a lane ran (`lane_waves`, the kernel's
+    count) 4R integer operations a resource and 40 more for the gates,
+    caps and scans, as `con_bound` counts a wave."""
+    c, mpn = inp.candidates.shape[0], inp.mpn
+    n, r = inp.free.shape
+    tensors = list(vars(inp).values()) + list(vars(topo).values())
+    in_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    out_bytes = 2 * c + 2 * 4 * c + 2 * 4 * c * mpn
+    ops = nodes_needed * (4 * r + 8) + lane_waves * n * (4 * r + 40)
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def drain_topo_times(name, inp, topo, kk, card, plain_reps=1):
+    """The topology mode's times on these inputs: device time (the stream
+    held while the host enqueues), as launched from Python, the plain
+    version's on the card; the first fits' nodes, the lane-waves and the
+    bound of one sweep."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+
+    nodes = drain_kernel.node_counter(DEVICE)
+    waves = drain_kernel.wave_counter(DEVICE)
+    nodes.zero_()
+    waves.zero_()
+    drain_kernel.sweep(inp, kk, False, topo=topo)
+    torch.cuda.synchronize()
+    needed, (lane_waves, waved) = int(nodes), waves.tolist()
+    bound, bound_by = drain_topo_bound(inp, topo, needed, lane_waves)
+
+    def kernel():
+        return drain_kernel.sweep(inp, kk, False, topo=topo)
+
+    t = {"launch": cuda_ms(kernel, REPS), "kernel": cuda_ms(kernel, REPS,
+                                                             hold=True),
+         "plain": cuda_ms(lambda: drain_kernel.sweep_plain(inp, kk, False,
+                                                           topo=topo),
+                          plain_reps, warmup=1),
+         "bound": bound, "bound_by": bound_by, "nodes_needed": needed,
+         "lane_waves": lane_waves, "waved_lanes": waved}
+    n, r = inp.free.shape
+    log(f"[kernels] drain sweep topology mode {name} (C={inp.candidates.shape[0]} "
+        f"N={n} R={r} G={inp.req.shape[0]} MPN={inp.mpn} K={kk} "
+        f"Z={topo.max_zones}; first fits needed {needed} nodes, {waved} lanes "
+        f"ran {lane_waves} waves): kernel {t['kernel']} ms device time, "
+        f"{t['launch']} ms as launched from Python; plain {t['plain']} ms on "
+        f"the card; bound {bound} ms ({bound_by}) ({card})")
+    return t
+
+
 def record_drain_call(step):
     """One step with the drain kernel's wrapper recording its inputs:
     (SweepInputs, K)."""
@@ -938,9 +1031,9 @@ def record_drain_call(step):
     got = []
     real = drain_kernel.sweep
 
-    def sweep(inp, kk, explain, chunk=None):
+    def sweep(inp, kk, explain, chunk=None, topo=None):
         got.append((inp, kk, explain))
-        return real(inp, kk, explain, chunk)
+        return real(inp, kk, explain, chunk, topo)
 
     drain_kernel.sweep = sweep
     try:
@@ -2495,63 +2588,51 @@ def constrained_steps(card, step, snap=None):
 
 
 def record_con_calls(step):
-    """One step with the kernel's wrappers recording the inputs of the
+    """One step with the kernels' wrappers recording the inputs of the
     filter pack (the first pack_lanes of one lane), the options pack (the
-    first of several lanes) and one drain chunk's slot (the place_lanes call
-    with the most active lanes, the first where none has one; its `out`
-    buffers cloned before the call writes them). Returns {name: (kind,
-    args, kwargs)}."""
+    first of several lanes) and the constrained drain sweep (the drain
+    kernel's one call with a topology). Returns ({name: args} of the wave
+    placer's calls, (SweepInputs, TopoInputs, K) of the sweep)."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
 
-    got, most = {}, [-1]
-    real_place = constrained_kernel.place_lanes
+    got, sweeps = {}, []
     real_pack = constrained_kernel.pack_lanes
+    real_sweep = drain_kernel.sweep
 
-    def place(*a, **kw):
-        n_active = int(kw["active"].sum()) if kw.get("active") is not None \
-            else a[3].shape[0]
-        if n_active > most[0]:
-            most[0] = n_active
-            got["drain"] = ("place", a, dict(
-                kw, out=tuple(t.clone() for t in kw["out"])))
-        return real_place(*a, **kw)
+    def pack(*a):
+        got.setdefault("filter" if a[0].shape[0] == 1 else "options", a)
+        return real_pack(*a)
 
-    def pack(*a, **kw):
-        name = "filter" if a[0].shape[0] == 1 else "options"
-        got.setdefault(name, ("pack", a, kw))
-        return real_pack(*a, **kw)
+    def sweep(inp, kk, explain, chunk=None, topo=None):
+        sweeps.append((inp, topo, kk, explain))
+        return real_sweep(inp, kk, explain, chunk, topo)
 
-    constrained_kernel.place_lanes, constrained_kernel.pack_lanes = place, pack
+    constrained_kernel.pack_lanes, drain_kernel.sweep = pack, sweep
     try:
         step()
         torch.cuda.synchronize()
     finally:
-        constrained_kernel.place_lanes = real_place
-        constrained_kernel.pack_lanes = real_pack
-    missing = {"filter", "options", "drain"} - set(got)
+        constrained_kernel.pack_lanes, drain_kernel.sweep = real_pack, real_sweep
+    missing = {"filter", "options"} - set(got)
     if missing:
         raise AssertionError(f"the constrained step made no {missing} call")
-    log(f"[constrained] recorded the kernel's inputs: filter, options, a "
-        f"drain slot with {most[0]} of {got['drain'][1][3].shape[0]} lanes "
-        f"active")
-    if not most[0]:
-        # this world's drain re-places no constrained group, so the slot is
-        # also checked with every lane active: every candidate's pods of
-        # that slot re-placed by waves, on the slot's own inputs
-        kind, a, kw = got["drain"]
-        got["drain, every lane active"] = (kind, a, dict(
-            kw, active=torch.ones_like(kw["active"])))
-    return got
+    if len(sweeps) != 1 or sweeps[0][1] is None or sweeps[0][3]:
+        raise AssertionError(f"the constrained step made {len(sweeps)} drain "
+                             f"sweeps, not one with a topology")
+    inp, topo, kk, _ = sweeps[0]
+    log(f"[constrained] recorded the kernels' inputs: filter, options, the "
+        f"drain sweep with a topology (C={inp.candidates.shape[0]} "
+        f"N={inp.free.shape[0]} G={inp.req.shape[0]} MPN={inp.mpn} K={kk} "
+        f"Z={topo.max_zones})")
+    return got, (inp, topo, kk)
 
 
-def con_call(fn_place, fn_pack, kind, args, kw):
-    """A recorded call through a place_lanes / pack_lanes pair; a flat
-    tuple of outputs (the `out` buffers cloned first)."""
-    if kind == "pack":
-        res = fn_pack(*args)
-        return res.free_after, res.placed, res.scheduled
-    out = tuple(t.clone() for t in kw["out"])
-    return tuple(fn_place(*args, active=kw["active"], out=out))
+def pack_outputs(pack, args):
+    """A recorded pack_lanes call through `pack` (the kernel's wrapper or
+    its plain version): a flat tuple of outputs."""
+    res = pack(*args)
+    return res.free_after, res.placed, res.scheduled
 
 
 def check_con(name, got, want) -> int:
@@ -2572,76 +2653,57 @@ def check_con(name, got, want) -> int:
     return err
 
 
-def con_bound(kind, args, kw, lane_waves):
-    """(bound ms, 'bytes'|'operations') of one call of the kernel on these
-    inputs: each input read once (a shared row once), each output written
-    once; operations: 4R integer ops a resource (clamp, divide, min,
-    update) and 40 more for the gates, caps and scans on every node of
+def con_bound(args, lane_waves):
+    """(bound ms, 'bytes'|'operations') of one pack_lanes call of the kernel
+    on these inputs: each input read once (a shared row once), each output
+    written once; operations: 4R integer ops a resource (clamp, divide,
+    min, update) and 40 more for the gates, caps and scans on every node of
     every wave a lane ran (`lane_waves`, the kernel's count for this call),
     plus 4R + 8 on every node of every (lane, group) that takes the
     one-shot first fit."""
     free = args[0]
-    n, r = free.shape[-2:]
-    act = kw.get("active") if kind == "place" else None
-    b = args[3].shape[0] if kind == "place" else free.shape[0]
-    share = int(act.sum()) / b if act is not None else 1.0
+    b, n, r = free.shape
+    g = args[2].shape[0]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    tensors += list(vars(args[5 if kind == "place" else 6]).values())
+    tensors += list(vars(args[6]).values())
     in_bytes = 0.0
     for t in tensors:
-        shared = t.dim() and t.shape[0] > 1 and t.stride(0) == 0
-        lanes = not shared and t.dim() and t.shape[0] == b and b > 1
-        if shared:
+        if t.dim() and t.shape[0] > 1 and t.stride(0) == 0:
             t = t[0]                               # a shared row, read once
-        in_bytes += t.numel() * t.element_size() * (share if lanes else 1.0)
-    if kind == "pack":
-        g = args[2].shape[0]
-        out_bytes = (b * n * r + b * g * n + b * g) * 4
-        fast = b * g - int(args[6].is_constrained().expand(b, g).sum())
-    else:
-        out_bytes = b * share * (n * r + n) * 4
-        fast = 0
+        in_bytes += t.numel() * t.element_size()
+    out_bytes = (b * n * r + b * g * n + b * g) * 4
+    fast = b * g - int(args[6].is_constrained().expand(b, g).sum())
     ops = lane_waves * n * (4 * r + 40) + fast * n * (4 * r + 8)
     t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def con_times(name, kind, args, kw, plain_reps):
-    """The kernel's times on recorded inputs: as launched from Python and
-    device time (the stream held while the host enqueues), the plain
-    version's on the card, the lane-waves of one call and the bound."""
+def con_times(name, args, plain_reps):
+    """The kernel's times on a recorded pack_lanes call: as launched from
+    Python and device time (the stream held while the host enqueues), the
+    plain version's on the card, the lane-waves of one call and the
+    bound."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel as ck
 
-    if kind == "pack":
-        def kernel():
-            return ck.pack_lanes(*args)
+    def kernel():
+        return ck.pack_lanes(*args)
 
-        def plain():
-            return ck.pack_lanes_plain(*args)
-    else:
-        # `out` written in place, outside the timed calls' own work: a call
-        # rewrites the active lanes with the same values and no others
-        out_k = tuple(t.clone() for t in kw["out"])
-        out_p = tuple(t.clone() for t in kw["out"])
+    def plain():
+        return ck.pack_lanes_plain(*args)
 
-        def kernel():
-            return ck.place_lanes(*args, active=kw["active"], out=out_k)
-
-        def plain():
-            return ck.place_lanes_plain(*args, active=kw["active"], out=out_p)
     counter = ck.wave_counter(DEVICE)
     counter.zero_()
     kernel()
     torch.cuda.synchronize()
     lane_waves = int(counter)
-    bound, bound_by = con_bound(kind, args, kw, lane_waves)
+    bound, bound_by = con_bound(args, lane_waves)
     t = {"launch": cuda_ms(kernel, REPS), "kernel": cuda_ms(kernel, REPS,
                                                              hold=True),
          "plain": cuda_ms(plain, plain_reps, warmup=1), "bound": bound,
          "bound_by": bound_by, "lane_waves": lane_waves}
-    b = args[0].shape[0] if kind == "pack" else args[3].shape[0]
-    log(f"[kernels] constrained wave placer {name} ({kind}_lanes B={b} "
+    b = args[0].shape[0]
+    log(f"[kernels] constrained wave placer {name} (pack_lanes B={b} "
         f"N={args[0].shape[-2]} R={args[0].shape[-1]}, {lane_waves} "
         f"lane-waves a call): kernel {t['kernel']} ms device time, "
         f"{t['launch']} ms as launched from Python; plain {t['plain']} ms on "
@@ -2653,11 +2715,14 @@ def constrained_phase(dims, card, profile_dir=None):
     """Phase 14: `run_once_fused` with the constrained tier on the bench
     world with constraints (bench_pod_factory): the wave placer's kernel
     against its plain version on the step's own inputs (the filter pack,
-    the options pack, one drain chunk's constrained slot); step and phase
-    times with the kernel's launches and lane-waves; one step with no host
-    read; the kernel's and the plain version's times; one step under
-    torch.profiler; invariants and the decision; `run_once_sim` with
-    constraints. Returns (launches, JSON fields, max abs error)."""
+    the options pack), the drain kernel's topology mode against its plain
+    version on the step's sweep and on a world of the same widths where
+    every lane re-places by waves; step and phase times with the kernels'
+    launches and lane-waves; one step with no host read; the kernels' and
+    the plain versions' times; one step under torch.profiler; invariants
+    and the decision; `run_once_sim` with constraints. Returns (the wave
+    placer's launches, its JSON fields, its max abs error, the topology
+    mode's JSON fields with its launches and max abs error)."""
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
         ClusterTensors,
     )
@@ -2665,7 +2730,11 @@ def constrained_phase(dims, card, profile_dir=None):
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
         constrained_kernel as ck,
     )
-    from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+        drain_kernel,
+        drain_topo_cases,
+        pack_kernel,
+    )
 
     t0 = time.perf_counter()
     enc, groups, step = constrained_world(dims)
@@ -2685,28 +2754,46 @@ def constrained_phase(dims, card, profile_dir=None):
     torch.cuda.synchronize()
     # the kernel against its plain version (called directly, on the card)
     # on the inputs this step gives it
-    calls = record_con_calls(step)
+    calls, (dinp, dtopo, dkk) = record_con_calls(step)
     err = 0
-    for name, (kind, args, kw) in calls.items():
-        err = max(err, check_con(
-            f"[constrained] {name} inputs",
-            con_call(ck.place_lanes, ck.pack_lanes, kind, args, kw),
-            con_call(ck.place_lanes_plain, ck.pack_lanes_plain, kind, args,
-                     kw)))
+    for name, args in calls.items():
+        err = max(err, check_con(f"[constrained] {name} inputs",
+                                 pack_outputs(ck.pack_lanes, args),
+                                 pack_outputs(ck.pack_lanes_plain, args)))
+    # the drain kernel's topology mode on the step's sweep, and on a world
+    # of the same widths where every lane with pods re-places by waves
+    n, r = dinp.free.shape
+    d_err, step_lanes, _ = check_drain_topo("[constrained] sweep inputs",
+                                            dinp, dtopo, dkk)
+    every = drain_topo_cases.world(0, n, dinp.req.shape[0], dinp.mpn, kk=dkk,
+                                   r=r, z=dtopo.max_zones).to(DEVICE)
+    ainp, atopo = every.inputs()
+    del every
+    e, all_lanes, _ = check_drain_topo("[constrained] widths, every lane active",
+                                       ainp, atopo, dkk)
+    d_err = max(d_err, e)
+    log(f"[constrained] drain lanes re-placed by waves: {step_lanes} in the "
+        f"step's sweep, {all_lanes} where every lane is active ({card})")
     torch.cuda.synchronize()
 
     # the main path: counts zeroed just before, read just after
     counter = ck.wave_counter(DEVICE)
+    d_counter = drain_kernel.wave_counter(DEVICE)
     torch.cuda.reset_peak_memory_stats()
     pack_kernel.pack_groups_batched.launches = 0
     ck.launch.launches = 0
+    drain_kernel.launch.launches = 0
     counter.zero_()
+    d_counter.zero_()
     w0 = wave_counts()
+    plain_lanes = drain_kernel.sweep_plain.active_lanes
     step_ms, phase_ms, stats, (decision, resident) = constrained_steps(
         card, step, snap=counter.clone)
     launches = ck.launch.launches
+    d_launches = drain_kernel.launch.launches
     torch.cuda.synchronize()
     lane_waves = int(counter)
+    d_waves, d_lanes = d_counter.tolist()
     w1 = wave_counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     k1 = pack_kernel.pack_groups_batched.launches
@@ -2717,12 +2804,22 @@ def constrained_phase(dims, card, profile_dir=None):
     log(f"[constrained] peak device memory allocated: {peak_mib:.1f} MiB; "
         f"K1 launches {k1} in {CON_STEPS} steps (the constrained pack "
         f"replaces it) ({card})")
+    log(f"[constrained] the drain kernel: {d_launches} launches in "
+        f"{CON_STEPS} steps ({d_launches / CON_STEPS} a step), {d_lanes} "
+        f"lanes re-placed by waves in them ({d_waves} lane-waves); the plain "
+        f"sweep's lanes {drain_kernel.sweep_plain.active_lanes - plain_lanes} "
+        f"({card})")
     if k1:
         raise AssertionError("K1 ran on the constrained path")
-    if not launches or not lane_waves:
-        raise AssertionError("the constrained step launched no wave placer")
-    if w1 != w0:
-        raise AssertionError("the plain wave placer ran on the card")
+    if launches != 2 * CON_STEPS or not lane_waves:
+        raise AssertionError(f"the wave placer launched {launches} times in "
+                             f"{CON_STEPS} steps, not 2 a step (the filter "
+                             f"and the options)")
+    if d_launches != CON_STEPS:
+        raise AssertionError(f"the drain kernel launched {d_launches} times "
+                             f"in {CON_STEPS} steps, not once a step")
+    if w1 != w0 or drain_kernel.sweep_plain.active_lanes != plain_lanes:
+        raise AssertionError("a plain version ran on the card")
 
     # one step with no host read at all
     r0 = wave_counts()
@@ -2738,10 +2835,14 @@ def constrained_phase(dims, card, profile_dir=None):
     # the kernel's and the plain version's times on the step's inputs (the
     # plain version at the filter's inputs is the route the card took
     # before the kernel)
-    times = {name: con_times(name, kind, args, kw,
-                             1 if name.startswith("drain") else 3)
-             for name, (kind, args, kw) in calls.items()}
+    times = {name: con_times(name, args, 3) for name, args in calls.items()}
     del calls
+    d_times = {"sweep": drain_topo_times("[constrained] sweep", dinp, dtopo,
+                                         dkk, card, plain_reps=2),
+               "all_active": drain_topo_times(
+                   "[constrained] widths, every lane active", ainp, atopo, dkk,
+                   card)}
+    del ainp, atopo
 
     profile_step(step, pct(step_ms, 50), profile_dir, tag="[constrained]",
                  trace_name="chip_smoke_constrained_step.trace.json")
@@ -2800,27 +2901,42 @@ def constrained_phase(dims, card, profile_dir=None):
              "launches_per_step": launches / CON_STEPS,
              "step_p50_ms": pct(step_ms, 50), "step_p90_ms": pct(step_ms, 90),
              "filter_p50_ms": pct(phase_ms["filter"], 50)}
-    for name, t in times.items():
-        if name == "filter":
-            continue
-        key = name.split(",")[0] + ("_all_active" if "," in name else "")
-        entry.update({f"{key}_ms": t["launch"],
-                      f"{key}_device_ms": t["kernel"],
-                      f"{key}_plain_ms": t["plain"],
-                      f"{key}_bound_ms": t["bound"]})
-    return launches, entry, err
+    t = times["options"]
+    entry.update({"options_ms": t["launch"], "options_device_ms": t["kernel"],
+                  "options_plain_ms": t["plain"],
+                  "options_bound_ms": t["bound"]})
+    t = d_times["sweep"]
+    d_entry = {"launches": d_launches, "max_abs_err": d_err,
+               "ms": t["launch"], "device_ms": t["kernel"],
+               "plain_ms": t["plain"], "bound_ms": t["bound"],
+               "bound_by": t["bound_by"], "nodes_needed": t["nodes_needed"],
+               "lane_waves": t["lane_waves"], "waved_lanes": t["waved_lanes"],
+               "main_path_waved_lanes": d_lanes,
+               "main_path_lane_waves": d_waves}
+    t = d_times["all_active"]
+    d_entry.update({f"all_active_{k}": t[k2] for k, k2 in (
+        ("ms", "launch"), ("device_ms", "kernel"), ("plain_ms", "plain"),
+        ("bound_ms", "bound"), ("bound_by", "bound_by"),
+        ("lane_waves", "lane_waves"), ("waved_lanes", "waved_lanes"))})
+    return launches, entry, err, d_entry
 
 
 def constrained_cpu_card_phase(dims, card):
     """Phase 14: the constrained steps on the CPU and on the card on the
-    every-kind world (kinds_objects) at 512 nodes."""
+    every-kind world (kinds_objects) at 512 nodes, with the drain lanes that
+    re-placed by waves (the plain sweep's count on the CPU, the drain
+    kernel's on the card)."""
     from kubernetes_autoscaler_tpu_torch.ops import autoscale_step
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
 
     runs = {}
     for dev in ("cpu", DEVICE):
         e, gr = encode_world(kinds_objects(SMALL_NODES), dev)
         cap = torch.full((gr.ng,), MAX_NEW_NODES, dtype=torch.int32,
                          device=dev)
+        d_counter = drain_kernel.wave_counter(dev)
+        d_counter.zero_()
+        plain_lanes = drain_kernel.sweep_plain.active_lanes
         w0 = wave_counts()
         fused = autoscale_step.run_once_fused(
             e.nodes, e.specs, e.scheduled, gr, cap, dims,
@@ -2835,17 +2951,25 @@ def constrained_cpu_card_phase(dims, card):
             max_pods_per_node=MAX_PODS_PER_NODE, planes=e.planes,
             max_zones=dims.max_zones, with_constraints=True)
         w1 = wave_counts()
+        lanes = (drain_kernel.sweep_plain.active_lanes - plain_lanes
+                 if dev == "cpu" else int(d_counter[1]))
         wave_row = int((e.specs.count == KINDS_WAVE_PODS).nonzero()[0])
         capped = int(fused[0].verdict[wave_row])
         log(f"[constrained-cpu-card] {dev}: kinds "
             f"{json.dumps(constraint_kinds(e))}; waves {w1[0] - w0[0]}, flag "
             f"reads {w1[1] - w0[1]}; the one-zone spread placed {capped} of "
-            f"{KINDS_WAVE_PODS}")
+            f"{KINDS_WAVE_PODS}; drain lanes re-placed by waves in the fused "
+            f"step and scale_down_sim: {lanes} "
+            f"({'the plain sweep' if dev == 'cpu' else 'the drain kernel'})")
+        runs.setdefault("lanes", []).append(lanes)
         if capped != 128:
             raise AssertionError(f"the one-zone spread placed {capped}, not "
                                  f"the MAX_WAVES cap of 128")
         runs[dev] = {"run_once_fused": fused, "scale_up_sim": up,
                      "scale_down_sim": down}
+    if runs.pop("lanes") != [lanes] * 2:
+        raise AssertionError("the CPU and the card re-placed different drain "
+                             "lanes by waves")
     for name in runs["cpu"]:
         n_leaves, worst = compare_cpu_card(f"[constrained-cpu-card] {name}",
                                            runs["cpu"][name],
@@ -4625,6 +4749,7 @@ def main() -> int:
         constrained_kernel,
         drain_cases,
         drain_kernel,
+        drain_topo_cases,
         hist_cases,
         histogram_kernel,
         pack_cases,
@@ -4693,6 +4818,11 @@ def main() -> int:
         case = case().to(DEVICE)
         drain_err = max(drain_err, check_drain(
             f"case {name}", case.inputs(), case.max_groups_per_node))
+    topo_err = 0
+    for name, case in drain_topo_cases.CASES.items():
+        case = case().to(DEVICE)
+        topo_err = max(topo_err, check_drain_topo(
+            f"case {name}", *case.inputs(), case.max_groups_per_node)[0])
 
     dims = Dims()
     # 4. the fused main path at full size; the drain kernel on its sweep
@@ -4725,9 +4855,10 @@ def main() -> int:
     # 14-17. the constrained tier: the fused step at full width, the steps
     # CPU against the card, the control loop at full width and CPU against
     # the card
-    con_launches, con_entry, err = constrained_phase(dims, card,
-                                                     args.profile)
+    con_launches, con_entry, err, topo_entry = constrained_phase(
+        dims, card, args.profile)
     con_err = max(con_err, err)
+    topo_entry["max_abs_err"] = max(topo_entry["max_abs_err"], topo_err)
     constrained_cpu_card_phase(dims, card)
     loop_constrained_phase(card)
     loop_constrained_cpu_card_phase(card)
@@ -4819,10 +4950,11 @@ def main() -> int:
         "checked": True,
         "shapes": "[constrained]'s run_once_fused: the filter pack (pack_lanes "
                   "B=1, N=5120, G=64; ms, device_ms, plain_ms, bound_ms "
-                  "there), the options pack (B=NG, N=max_new_nodes), the "
-                  "drain's constrained slots (place_lanes, B=a chunk); XLA's "
-                  "while_loop and scan, no Pallas kernel; library_ms: no "
-                  "single PyTorch call computes a constrained wave pack",
+                  "there), the options pack (B=NG, N=max_new_nodes), 2 "
+                  "launches a step (the drain's constrained slots run in the "
+                  "drain kernel's topology mode); XLA's while_loop and scan, "
+                  "no Pallas kernel; library_ms: no single PyTorch call "
+                  "computes a constrained wave pack",
     }, {
         "name": "drain_sweep",
         "route": "cuda",
@@ -4839,6 +4971,21 @@ def main() -> int:
                   "pass (failure_reasons) is the same kernel; XLA's scan under "
                   "vmap, no Pallas kernel; library_ms: no single PyTorch call "
                   "computes a K-step first fit",
+    }, {
+        "name": "drain_sweep_topology",
+        "route": "cuda",
+        "source": "kubernetes_autoscaler_tpu_torch/csrc/drain.cu",
+        "replaces": "kubernetes_autoscaler_tpu/ops/drain.py:308",
+        **topo_entry,
+        "library_ms": None,
+        "checked": True,
+        "shapes": "[constrained]'s run_once_fused: the constrained scale-down "
+                  "sweep, the same kernel's topology mode (C=N=5120, G=64, "
+                  "MPN=128, K=16, Z=16; ms, device_ms, plain_ms, bound_ms "
+                  "there), one launch a step; all_active_*: the same widths "
+                  "where every lane re-places by waves; XLA's scan with "
+                  "lax.cond(is_con, slow, fast) under vmap, no Pallas kernel; "
+                  "library_ms: no single PyTorch call computes it",
     }]
     log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)

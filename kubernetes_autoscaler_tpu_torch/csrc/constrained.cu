@@ -12,20 +12,8 @@
 //   kPack:  each lane walks the G groups in `order` (read on the device):
 //           a constrained group by waves, any other by the one-shot first
 //           fit of ops/pack (the reference's `fast`).
-// A wave of a lane, in the reference's order, per node n of the lane:
-//   fit  = min(fit_count(free[n], req), rem); 0 where infeasible; with
-//          limit_one min(1 - (placed[n] > 0), fit)
-//   positive affinity: the bootstrap seed (the first node that can take a
-//          pod, gated by "some node can"), or resident-satisfied or opened
-//          by the group's own placements (host, or zone via zone_placed[Z])
-//   hostname spread: min(fit, max(min_h + skew - cnt[n], 0)), min_h a
-//          block min over the eligible nodes and the base outside the set
-//   zone caps: spread allowance and anti-self 1-per-zone per zone, less
-//          what earlier nodes of the same zone take (an exclusive prefix in
-//          node order within the zone); keyless nodes uncapped
-//   the global first fit: place = clip(rem - exclusive_prefix, 0, fit_z)
-//   then free -= place * req, placed += place, rem -= sum(place); the lane
-//   stops when rem <= 0, a wave places nothing, or after max_waves waves.
+// A wave of a lane is csrc/waves.cuh's `place_waves` (shared with the drain
+// sweep's topology mode, csrc/drain.cu), whose header gives its steps.
 // All arithmetic is int32 with the plain version's wrap-around (sums and
 // products in unsigned), so the result is byte-equal to
 // ops/kernels/constrained_kernel.py's plain version, not close to it.
@@ -39,7 +27,7 @@
 //
 // The design. One CTA of up to 1,024 threads runs one lane to its end
 // (the grid is at most what the card holds at once, each CTA walking
-// lanes b, b + grid, ...; an inactive drain lane costs one flag read);
+// lanes b, b + grid, ...; an inactive lane costs one flag read);
 // thread t owns the contiguous nodes [tK, tK + K), K = ceil(N / threads),
 // so a node's free capacity and placed count are touched by one thread
 // only and need no barrier. The lane's free plane ([R][N]), placed row and
@@ -49,11 +37,9 @@
 // row in a scratch buffer in device memory, as csrc/wavefront.cu keeps
 // free_after, with the same code. The zone prefix walks a zone-sorted
 // permutation of the nodes (computed once a call by the wrapper, as
-// ops/constrained._zone_segments does) with one segmented block scan, and
-// is skipped where it can change nothing: no zone constraint and N * rem
-// below the BIG cap, so no prefix reaches the cap. A wave costs 3 barriers
-// (5 with zone caps): the min reductions, the global scan, the placed sum,
-// and the segmented scan with its hand-over. No division: pack_row.cuh's
+// ops/constrained._zone_segments does). A wave costs 3 barriers (5 with
+// zone caps): the min reductions, the global scan, the placed sum, and the
+// segmented scan with its hand-over. No division: pack_row.cuh's
 // multiply-high codes, computed once a group.
 //
 // Contract (checked by the Python wrapper): int32 and uint8 (bool)
@@ -70,6 +56,7 @@
 #include <mutex>
 
 #include "pack_row.cuh"
+#include "waves.cuh"
 
 namespace {
 
@@ -83,8 +70,6 @@ enum Field {
 
 enum Mode { kPlace = 0, kPack = 1 };
 
-constexpr int kConBig = 1 << 28;  // ops/constrained.BIG
-
 struct Params {
   const void* ptr[kNumFields];
   long long ls[kNumFields];  // lane stride in elements; 0 = shared row
@@ -92,19 +77,15 @@ struct Params {
 
 // byte offsets of the shared-memory arrays
 struct Layout {
-  size_t scan, sum, mins, segf, segs, zp, zc, czb, ezb, req, mul, sh, plane, placed, fit, end;
+  size_t blk, zp, zc, czb, ezb, req, mul, sh, plane, placed, fit, end;
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
 __host__ __device__ inline Layout layout(int N, int R, int Z, bool smem_plane) {
   Layout l;
-  l.scan = 0;                                  // u32 [2][32]
-  l.sum = l.scan + 2 * 32 * 4;                 // u32 [2][32]
-  l.mins = l.sum + 2 * 32 * 4;                 // i32 [2][2][32]
-  l.segf = l.mins + 2 * 2 * 32 * 4;            // u32 [2][32]
-  l.segs = l.segf + 2 * 32 * 4;                // u32 [2][32]
-  l.zp = l.segs + 2 * 32 * 4;                  // i32 [Z] zone_placed
+  l.blk = 0;                                   // u32 [kBlockWords] the Block helpers
+  l.zp = l.blk + kBlockWords * 4;              // i32 [Z] zone_placed
   l.zc = l.zp + static_cast<size_t>(Z) * 4;    // i32 [Z] zone_cap
   l.czb = l.zc + static_cast<size_t>(Z) * 4;   // i32 [Z] cnt_zone_base
   l.ezb = l.czb + static_cast<size_t>(Z) * 4;  // i32 [Z] elig_zone_base
@@ -125,120 +106,58 @@ inline int con_threads(int N) {
   return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
 }
 
-// a + b and a - b in int32 with the wrap-around of the plain version's
-// int32 tensors
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ unsigned warp_incl(unsigned x, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned y = __shfl_up_sync(kFullMask, x, off);
-    if (lane >= off) x += y;
-  }
-  return x;
-}
-
-// Block-wide helpers. Each has its own double-buffered slots and phase: a
-// warp that runs ahead to the helper's next call writes the other half,
-// and the call after that comes only after a barrier every warp passed
-// once it had read this call's values.
-struct Block {
-  unsigned* scan;  // [2][32]
-  unsigned* sum;   // [2][32]
-  int* mins;       // [2][2][32]
-  unsigned* segf;  // [2][32]
-  unsigned* segs;  // [2][32]
-  unsigned p_scan = 0, p_sum = 0, p_min = 0, p_seg = 0;
-  int lane, warp, nwarps;
-
-  // exclusive prefix of x over the threads (wrap-around); `total` the sum
-  __device__ unsigned excl(unsigned x, unsigned& total) {
-    const unsigned inc = warp_incl(x, lane);
-    unsigned* s = scan + (p_scan++ & 1u) * 32;
-    if (lane == 31) s[warp] = inc;
-    __syncthreads();
-    const unsigned v = lane < nwarps ? s[lane] : 0u;
-    const unsigned vinc = warp_incl(v, lane);
-    const unsigned before = __shfl_sync(kFullMask, vinc - v, warp);
-    total = __shfl_sync(kFullMask, vinc, 31);
-    return before + inc - x;
-  }
-
-  // the sum of x over the threads (wrap-around), on every thread
-  __device__ unsigned total(unsigned x) {
-    x = __reduce_add_sync(kFullMask, x);
-    unsigned* s = sum + (p_sum++ & 1u) * 32;
-    if (lane == 0) s[warp] = x;
-    __syncthreads();
-    return __reduce_add_sync(kFullMask, lane < nwarps ? s[lane] : 0u);
-  }
-
-  // the minima of a and b over the threads, on every thread
-  __device__ void min2(int& a, int& b) {
-    a = __reduce_min_sync(kFullMask, a);
-    b = __reduce_min_sync(kFullMask, b);
-    int* s = mins + (p_min++ & 1u) * 64;
-    if (lane == 0) {
-      s[warp] = a;
-      s[32 + warp] = b;
-    }
-    __syncthreads();
-    a = __reduce_min_sync(kFullMask, lane < nwarps ? s[lane] : INT_MAX);
-    b = __reduce_min_sync(kFullMask, lane < nwarps ? s[32 + lane] : INT_MAX);
-  }
-
-  // segmented scan: each thread's (f, s) is "a segment starts in my range"
-  // and the sum since my last start (or of my whole range). Returns the sum
-  // of the values of earlier threads since the last start before mine.
-  __device__ unsigned seg_carry(unsigned f, unsigned s) {
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned yf = __shfl_up_sync(kFullMask, f, off);
-      const unsigned ys = __shfl_up_sync(kFullMask, s, off);
-      if (lane >= off) {
-        s = f ? s : ys + s;
-        f |= yf;
-      }
-    }
-    // this thread's exclusive pair within the warp
-    unsigned ef = __shfl_up_sync(kFullMask, f, 1);
-    unsigned es = __shfl_up_sync(kFullMask, s, 1);
-    if (lane == 0) ef = es = 0u;
-    const unsigned ph = p_seg++ & 1u;
-    unsigned* sf = segf + ph * 32;
-    unsigned* ss = segs + ph * 32;
-    if (lane == 31) {
-      sf[warp] = f;
-      ss[warp] = s;
-    }
-    __syncthreads();
-    unsigned wf = lane < nwarps ? sf[lane] : 0u;
-    unsigned ws = lane < nwarps ? ss[lane] : 0u;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const unsigned yf = __shfl_up_sync(kFullMask, wf, off);
-      const unsigned ys = __shfl_up_sync(kFullMask, ws, off);
-      if (lane >= off) {
-        ws = wf ? ws : ys + ws;
-        wf |= yf;
-      }
-    }
-    // the carry of the warps before this one
-    unsigned cs = __shfl_sync(kFullMask, ws, (warp + 31) & 31);
-    if (warp == 0) cs = 0u;
-    return ef ? es : cs + es;
-  }
-};
-
 template <typename T>
 __device__ __forceinline__ const T* at(const Params& p, Field f, int b, long long off = 0) {
   return static_cast<const T*>(p.ptr[f]) + p.ls[f] * b + off;
 }
+
+// One lane as csrc/waves.cuh's `place_waves` sees it: the lane's free plane
+// ([R][N] in shared memory, [N][R] in device memory: the free_out buffer)
+// and placed row, the current group's request codes and constraint rows.
+template <bool kSmem>
+struct ConLane {
+  int* plane;
+  int* P;  // the group's placed row
+  int N, R, Z;
+  const int* rq;
+  const unsigned* mu;
+  const int* sh;
+  const unsigned char* feas_;
+  const int* s_cnt_;
+  const unsigned char* s_elig_;
+  const unsigned char* a_ok_;
+  const unsigned char* zval_;
+  const int* zcl;
+
+  __device__ int& F(int n, int r) const {
+    return kSmem ? plane[static_cast<size_t>(r) * N + n] : plane[static_cast<size_t>(n) * R + r];
+  }
+  // per requested resource max(free, 0) / req, the BIG of ops/pack for a
+  // resource the group does not request
+  __device__ int fit_count(int n) const {
+    unsigned fc = UINT_MAX;
+    for (int r = 0; r < R; ++r) {
+      const int s = sh[r];
+      const unsigned q = s == kNoLimit ? static_cast<unsigned>(kBig) : quotient(F(n, r), mu[r], s);
+      fc = min(fc, q);
+    }
+    return static_cast<int>(fc);
+  }
+  __device__ void take(int n, int place) const {
+    for (int r = 0; r < R; ++r) F(n, r) -= mul_wrap(place, rq[r]);
+  }
+  __device__ bool feas(int n) const { return feas_[n] != 0; }
+  __device__ int placed(int n) const { return P[n]; }
+  __device__ void place(int n, int v) const {
+    take(n, v);
+    P[n] += v;
+  }
+  __device__ int s_cnt(int n) const { return s_cnt_[n]; }
+  __device__ bool s_elig(int n) const { return s_elig_[n] != 0; }
+  __device__ bool a_ok(int n) const { return a_ok_[n] != 0; }
+  __device__ bool zval(int n) const { return zval_[n] != 0; }
+  __device__ int zone_of(int n) const { return min(max(zcl[n], 0), Z - 1); }
+};
 
 template <bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -246,12 +165,7 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const unsigned char* active = static_cast<const unsigned char*>(p.ptr[kActive]);
   const Layout L = layout(N, R, Z, kSmem);
-  Block blk;
-  blk.scan = reinterpret_cast<unsigned*>(smem_raw + L.scan);
-  blk.sum = reinterpret_cast<unsigned*>(smem_raw + L.sum);
-  blk.mins = reinterpret_cast<int*>(smem_raw + L.mins);
-  blk.segf = reinterpret_cast<unsigned*>(smem_raw + L.segf);
-  blk.segs = reinterpret_cast<unsigned*>(smem_raw + L.segs);
+  Block blk(reinterpret_cast<unsigned*>(smem_raw + L.blk));
   int* zone_placed = reinterpret_cast<int*>(smem_raw + L.zp);
   int* zone_cap = reinterpret_cast<int*>(smem_raw + L.zc);
   int* czb_s = reinterpret_cast<int*>(smem_raw + L.czb);
@@ -262,9 +176,6 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
 
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  blk.lane = tid & 31;
-  blk.warp = tid >> 5;
-  blk.nwarps = T >> 5;
   const int K = (N + T - 1) / T;
   const int n0 = min(tid * K, N);
   const int n1 = min(n0 + K, N);
@@ -275,30 +186,28 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
 
     const size_t NR = static_cast<size_t>(N) * R;
     int* fout = static_cast<int*>(const_cast<void*>(p.ptr[kFreeOut])) + b * NR;
-    int* plane = kSmem ? reinterpret_cast<int*>(smem_raw + L.plane) : fout;
     int* scratch = static_cast<int*>(const_cast<void*>(p.ptr[kScratch]));
     int* fit =
         kSmem ? reinterpret_cast<int*>(smem_raw + L.fit) : scratch + static_cast<size_t>(b) * N;
     int* placed_out = static_cast<int*>(const_cast<void*>(p.ptr[kPlaced]));
-    // free capacity of node n, resource r: [R][N] in shared memory, [N][R] in
-    // device memory (the free_out buffer)
-    auto F = [&](int n, int r) -> int& {
-      return kSmem ? plane[static_cast<size_t>(r) * N + n] : plane[static_cast<size_t>(n) * R + r];
-    };
+    ConLane<kSmem> lane;
+    lane.plane = kSmem ? reinterpret_cast<int*>(smem_raw + L.plane) : fout;
+    lane.N = N;
+    lane.R = R;
+    lane.Z = Z;
+    lane.zcl = at<int>(p, kZcl, b);
+    lane.zval_ = at<unsigned char>(p, kZval, b);
 
     {
       const int* fin = at<int>(p, kFreeIn, b);
       for (int n = n0; n < n1; ++n)
-        for (int r = 0; r < R; ++r) F(n, r) = fin[static_cast<size_t>(n) * R + r];
+        for (int r = 0; r < R; ++r) lane.F(n, r) = fin[static_cast<size_t>(n) * R + r];
     }
-    const int* zcl = at<int>(p, kZcl, b);
-    const unsigned char* zval = at<unsigned char>(p, kZval, b);
     const int* perm = at<int>(p, kPerm, b);
     const int* skey = at<int>(p, kSkey, b);
     const int* order = static_cast<const int*>(p.ptr[kOrder]);
     unsigned long long* wave_counter =
         static_cast<unsigned long long*>(const_cast<void*>(p.ptr[kWaves]));
-    auto zone_of = [&](int n) { return min(max(zcl[n], 0), Z - 1); };
 
     for (int it = 0; it < G; ++it) {
       const int g = order != nullptr ? order[it] : it;
@@ -335,28 +244,17 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
           ezb_s[tid] = at<unsigned char>(p, kEzb, b, static_cast<long long>(g) * Z)[tid];
         }
       }
+      lane.P = P;
+      lane.rq = rq;
+      lane.mu = mu;
+      lane.sh = sh;
+      lane.feas_ = feas;
       __syncthreads();
-
-      // fit_count of node n: per requested resource max(free, 0) / req, the
-      // BIG of ops/pack for a resource the group does not request
-      auto fit_count = [&](int n) -> int {
-        unsigned fc = UINT_MAX;
-        for (int r = 0; r < R; ++r) {
-          const int s = sh[r];
-          const unsigned q =
-              s == kNoLimit ? static_cast<unsigned>(kBig) : quotient(F(n, r), mu[r], s);
-          fc = min(fc, q);
-        }
-        return static_cast<int>(fc);
-      };
-      auto take = [&](int n, int place) {
-        for (int r = 0; r < R; ++r) F(n, r) -= mul_wrap(place, rq[r]);
-      };
 
       if (!con) {  // the one-shot first fit (ops/pack.pack_groups' arithmetic)
         unsigned tsum = 0;
         for (int n = n0; n < n1; ++n) {
-          int c = feas[n] ? fit_count(n) : 0;
+          int c = feas[n] ? lane.fit_count(n) : 0;
           if (lim) c = min(c, 1);
           c = min(c, cnt);
           fit[n] = c;
@@ -369,139 +267,27 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
           const int place = min(max(wsub(cnt, static_cast<int>(ex)), 0), c);
           ex += static_cast<unsigned>(c);
           prow[n] = place;
-          if (place != 0) take(n, place);
+          if (place != 0) lane.take(n, place);
         }
         continue;
       }
 
       // the wave placer
-      const int skew = *at<int>(p, kSSkew, b, g);
-      const bool s_self = *at<unsigned char>(p, kSSelf, b, g) != 0;
-      const bool a_self = *at<unsigned char>(p, kASelf, b, g) != 0;
-      const bool a_any = *at<unsigned char>(p, kAAny, b, g) != 0;
-      const int mhb = *at<int>(p, kMhb, b, g);
-      const int* s_cnt = at<int>(p, kSCnt, b, gn);
-      const unsigned char* s_elig = at<unsigned char>(p, kSElig, b, gn);
-      const unsigned char* a_ok = at<unsigned char>(p, kAOk, b, gn);
-      const bool boot_kind = a_kind > 0 && a_self && !a_any;
-      const bool zone_kind = s_kind == 2 || anti;
-
-      int rem = cnt;
-      bool done = false;
-      int waves = 0;
-      unsigned placed_total = 0;
-      auto cnt_at = [&](int n) { return wadd(s_cnt[n], s_self ? P[n] : 0); };
-      while (rem > 0 && !done && waves < max_waves) {  // block-uniform
-        // no zone prefix can reach the BIG cap when no zone constraint binds
-        // and N * rem (the most the fits can sum to) stays below it
-        const bool zone_pass = zone_kind || static_cast<long long>(N) * rem > kConBig;
-
-        // 1. the zone caps of this wave (read after the barrier of step 2)
-        if (zone_pass && tid < Z) {
-          int mz = INT_MAX;
-          for (int z = 0; z < Z; ++z) {
-            const int cz = wadd(czb_s[z], s_self ? zone_placed[z] : 0);
-            mz = min(mz, ezb_s[z] ? cz : kConBig);
-          }
-          if (mz >= kConBig) mz = 0;
-          const int zp = zone_placed[tid];
-          const int cz = wadd(czb_s[tid], s_self ? zp : 0);
-          int cap = kConBig;
-          if (s_kind == 2) cap = max(wsub(wadd(mz, skew), cz), 0);
-          if (anti) cap = min(cap, max(wsub(1, zp), 0));
-          zone_cap[tid] = cap;
-        }
-
-        // 2. fit, feasibility, limit_one; the first node that can take a pod
-        // and the hostname-spread minimum
-        int first = INT_MAX, mh = INT_MAX;
-        for (int n = n0; n < n1; ++n) {
-          const bool fe = feas[n] != 0;
-          int f = fe ? min(fit_count(n), rem) : 0;
-          if (lim) f = min(1 - (P[n] > 0 ? 1 : 0), f);
-          if (fe && f > 0) first = min(first, n);
-          if (s_kind == 1) mh = min(mh, s_elig[n] ? cnt_at(n) : kConBig);
-          fit[n] = f;
-        }
-        blk.min2(first, mh);
-
-        // 3. positive affinity and the hostname-spread allowance
-        const bool boot = boot_kind && placed_total == 0u;
-        const bool any = first != INT_MAX;
-        int min_h = 0;
-        if (s_kind == 1) {
-          min_h = min(mh, mhb);
-          if (min_h >= kConBig) min_h = 0;
-        }
-        for (int n = n0; n < n1; ++n) {
-          int f = fit[n];
-          bool ok = true;
-          if (boot) {
-            ok = any && n == first;
-          } else if (a_kind > 0) {
-            const bool open =
-                a_kind == 1 ? P[n] > 0 : (zval[n] != 0 && zone_placed[zone_of(n)] > 0);
-            ok = a_ok[n] != 0 || (a_self && open);
-          }
-          if (!ok) f = 0;
-          if (s_kind == 1) {
-            f = min(f, max(wsub(wadd(min_h, skew), cnt_at(n)), 0));
-          }
-          fit[n] = f;
-        }
-
-        // 4. the zone caps, less the exclusive prefix within the zone: the
-        // thread's positions [n0, n1) of the zone-sorted order, one segmented
-        // scan (a segment per zone, the keyless nodes last)
-        if (zone_pass) {
-          __syncthreads();  // every fit is in
-          unsigned sf = 0u, ss = 0u;
-          for (int q = n0; q < n1; ++q) {
-            const unsigned v = static_cast<unsigned>(fit[perm[q]]);
-            if (q == 0 || skey[q - 1] != skey[q]) {
-              sf = 1u;
-              ss = v;
-            } else {
-              ss += v;
-            }
-          }
-          unsigned run = blk.seg_carry(sf, ss);
-          for (int q = n0; q < n1; ++q) {
-            const int key = skey[q];
-            const int m = perm[q];
-            if (q == 0 || skey[q - 1] != key) run = 0u;
-            const int v = fit[m];
-            if (key < Z) {
-              fit[m] = min(v, max(wsub(zone_cap[key], static_cast<int>(run)), 0));
-            }
-            run += static_cast<unsigned>(v);
-          }
-          __syncthreads();  // every capped fit is in
-        }
-
-        // 5. the global first fit in node order and the update
-        unsigned tsum = 0;
-        for (int n = n0; n < n1; ++n) tsum += static_cast<unsigned>(fit[n]);
-        unsigned total;
-        unsigned ex = blk.excl(tsum, total);
-        unsigned mine = 0;
-        for (int n = n0; n < n1; ++n) {
-          const int v = fit[n];
-          const int place = min(max(wsub(rem, static_cast<int>(ex)), 0), v);
-          ex += static_cast<unsigned>(v);
-          if (place != 0) {
-            take(n, place);
-            P[n] += place;
-            if (zval[n]) atomicAdd(&zone_placed[zone_of(n)], place);
-            mine += static_cast<unsigned>(place);
-          }
-        }
-        const unsigned n_placed = blk.total(mine);  // its barrier publishes zone_placed
-        rem = wsub(rem, static_cast<int>(n_placed));
-        placed_total += n_placed;
-        done = n_placed == 0u;
-        ++waves;
-      }
+      lane.s_cnt_ = at<int>(p, kSCnt, b, gn);
+      lane.s_elig_ = at<unsigned char>(p, kSElig, b, gn);
+      lane.a_ok_ = at<unsigned char>(p, kAOk, b, gn);
+      const WaveGroup wg{cnt,
+                         lim,
+                         s_kind,
+                         *at<int>(p, kSSkew, b, g),
+                         *at<unsigned char>(p, kSSelf, b, g) != 0,
+                         a_kind,
+                         *at<unsigned char>(p, kASelf, b, g) != 0,
+                         *at<unsigned char>(p, kAAny, b, g) != 0,
+                         anti,
+                         *at<int>(p, kMhb, b, g)};
+      const int waves = place_waves(blk, lane, wg, N, Z, n0, n1, max_waves, fit, zone_placed,
+                                    zone_cap, czb_s, ezb_s, perm, skey);
       if (kSmem)
         for (int n = n0; n < n1; ++n) prow[n] = P[n];
       if (tid == 0 && waves > 0) atomicAdd(wave_counter, static_cast<unsigned long long>(waves));
@@ -509,7 +295,7 @@ constrained_kernel(Params p, int mode, int B, int G, int N, int R, int Z, int ma
 
     if (kSmem)
       for (int n = n0; n < n1; ++n)
-        for (int r = 0; r < R; ++r) fout[static_cast<size_t>(n) * R + r] = F(n, r);
+        for (int r = 0; r < R; ++r) fout[static_cast<size_t>(n) * R + r] = lane.F(n, r);
     __syncthreads();  // the next lane reuses the shared arrays
   }
 }

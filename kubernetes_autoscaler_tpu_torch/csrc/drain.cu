@@ -26,6 +26,23 @@
 //            not, or the group overflowed K), and the pod's index (-1 off
 //            c); or, explaining, the reason code, the first group with
 //            unplaced pods and the unplaced count.
+// The topology mode (`Z` > 0: ops/drain.simulate_removals with
+// constraints) is the reference's per-candidate program with constraints,
+// drain.py:195-219 (the candidate-independent preparation, done by the
+// wrapper) and :257-309. For the slot of group g of candidate c:
+//   ghost    g's zone totals of anti-affinity, affinity, spread and
+//            eligible nodes, less what c holds in its own zone ([Z] values
+//            in shared memory, per slot; no [C, Z] or [C, N] plane)
+//   gate     feas[g, n] also needs the zone gate: no adjusted anti-affinity
+//            count in n's zone, and for a non-self zone affinity an
+//            adjusted affinity count there
+//   route    a group with a spread, an affinity or anti-self-zone
+//            re-places by waves (`place_waves`, csrc/waves.cuh: the
+//            reference's `lax.cond(is_con[g], slow, fast)`), its rows of
+//            the constraint planes read by group index; any other takes
+//            the first fit above
+// and the waved slot's runs are its per-node totals after its last wave,
+// in node order.
 // All arithmetic is int32 with the plain version's wrap-around, so the
 // result is byte-equal to the plain version, not close to it.
 //
@@ -57,6 +74,15 @@
 // [C, N] placement curve and no searchsorted. A node of a slot belongs to
 // one thread, so its debit row needs no atomic; rows and runs are taken
 // with shared-memory atomics on two counters.
+// The topology mode keeps that view for the waves: a candidate places at
+// most its own MPN pods, so however many waves a slot runs it touches at
+// most MPN nodes, and the slot's placed count of a node (for limit_one and
+// the spread counts) sits beside the node's debit row. Its waves take the
+// thread's contiguous nodes [tK, tK + K), K = ceil(N / threads), a fit row
+// of N int32 in shared memory (20 KB at N = 5,120), and the zone-sorted
+// permutation of the nodes, one row every candidate shares, from the
+// wrapper. The unconstrained sweep is the other instance of the template
+// and runs none of it.
 //
 // Contract (checked by the Python wrapper): int32 and uint8 (bool)
 // contiguous tensors; candidates [C] in [0, N); starts [N]; pad_order
@@ -66,14 +92,21 @@
 // candidate adds the nodes its slots' first fits needed to (a slot that
 // places its count: up to the node where the running fit reaches it; one
 // that does not: all N). A movable pod's group must lie in [0, G) (the
-// kernel leaves any other pod unmovable). Launches on the given stream and
-// returns cudaGetLastError().
+// kernel leaves any other pod unmovable). The topology mode also takes
+// zone_cl (clipped to [0, Z)) and zone_valid [N]; s_kind, s_skew, s_self,
+// a_kind, a_self, a_any, anti_self_zone [G]; spread_cnt, aff_cnt,
+// anti_zone_cnt and s_elig [G, N]; the zone totals anti_zone, aff_zone,
+// cnt_zone and elig_zone [G, Z]; perm and skey [N] (the nodes sorted by
+// zone, keyless last, and their keys); and `waves`, two u64 counters that
+// each candidate adds its slots' waves and its waved slots to. Launches on
+// the given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <mutex>
 
 #include "pack_row.cuh"
+#include "waves.cuh"
 
 namespace {
 
@@ -81,7 +114,10 @@ using namespace ka;
 
 enum Field {
   kCand, kStarts, kPadOrder, kNodeIdx, kGroupRef, kValid, kMovable, kBlocks, kFree, kFeas,
-  kDestOk, kLimit, kReq, kOut0, kOut1, kOut2, kOut3, kDest, kPodSlot, kNodes, kNumFields
+  kDestOk, kLimit, kReq, kOut0, kOut1, kOut2, kOut3, kDest, kPodSlot, kNodes,
+  // the topology mode's
+  kZcl, kZval, kSKind, kSSkew, kSSelf, kAKind, kASelf, kAAny, kAnti, kSCnt, kAffCnt, kAntiCnt,
+  kSElig, kAntiZone, kAffZone, kCntZone, kEligZone, kPerm, kSkey, kWaves, kNumFields
 };
 
 struct Params {
@@ -103,12 +139,13 @@ enum Misc { kRuns, kRows, kCross, kNumMisc };
 // byte offsets of the shared-memory arrays
 struct Layout {
   size_t scan, misc, req, mul, sh, gidx, cnt, placed, mg, mb, mj, cidx, rnode, rlo, rhi, rslot,
-      debit, idx, end;
+      debit, idx, blk, zone, splaced, fit, end;
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
-__host__ __device__ inline Layout layout(int N, int R, int MPN, int K) {
+// Z > 0: the topology mode's arrays too
+__host__ __device__ inline Layout layout(int N, int R, int MPN, int K, int Z) {
   const size_t r4 = static_cast<size_t>(R) * 4, k4 = static_cast<size_t>(K) * 4,
                m4 = static_cast<size_t>(MPN) * 4;
   Layout l;
@@ -131,6 +168,14 @@ __host__ __device__ inline Layout layout(int N, int R, int MPN, int K) {
   l.debit = l.rslot + m4;         // i32 [MPN][R] debit rows
   l.idx = align16(l.debit + m4 * R);  // u16 [N] debit row + 1 of each node (0: none)
   l.end = align16(l.idx + static_cast<size_t>(N) * 2);
+  l.blk = l.zone = l.splaced = l.fit = l.end;
+  if (Z > 0) {
+    l.blk = l.end;                                        // u32 [kBlockWords]
+    l.zone = l.blk + kBlockWords * 4;                     // i32 [6][Z] the zone arrays
+    l.splaced = l.zone + 6 * static_cast<size_t>(Z) * 4;  // i32 [MPN] slot's placed by row
+    l.fit = align16(l.splaced + m4);                      // i32 [N] the waves' fit row
+    l.end = l.fit + static_cast<size_t>(N) * 4;
+  }
   return l;
 }
 
@@ -142,26 +187,102 @@ inline int drain_threads(int MPN) {
   return t > kMaxThreads ? -1 : t;
 }
 
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
+// The topology mode's per-candidate state of one slot (group g): its zone
+// arrays in shared memory, and its rows of the constraint planes.
+struct Topo {
+  const int* zcl;              // [N] zone id, clipped
+  const unsigned char* zval;   // [N] the node has a zone
+  int Z;
+  const int* anti_adj;         // [Z] g's anti-affinity counts, c's residents out
+  const int* aff_adj;          // [Z] g's affinity counts, c's residents out
+  bool aff2;                   // zone affinity to others: the gate needs aff_adj
 
-__device__ __forceinline__ unsigned warp_incl(unsigned x, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned y = __shfl_up_sync(kFullMask, x, off);
-    if (lane >= off) x += y;
+  __device__ int zone_of(int n) const { return min(max(zcl[n], 0), Z - 1); }
+  // the zone gate of g at node n with c drained
+  __device__ bool gate(int n) const {
+    const bool zv = zval[n] != 0;
+    const int z = zone_of(n);
+    return !(zv && anti_adj[z] > 0) && (!aff2 || (zv && aff_adj[z] > 0));
   }
-  return x;
+};
+
+// One (candidate, slot) lane as csrc/waves.cuh's `place_waves` sees it: the
+// shared free plane less the candidate's debit rows, the slot's placed
+// count of a node beside the node's debit row, and the group's rows.
+struct DrainLane {
+  const int* free0;
+  int* debit;
+  unsigned short* idx;
+  int* splaced;   // [MPN] the slot's placed count by debit row
+  int* rows;      // the rows taken so far
+  int R, c;
+  const int* s_req;
+  const unsigned* s_mul;
+  const int* s_sh;
+  const unsigned char* frow;
+  const unsigned char* dest_ok;
+  Topo t;
+  int a_kind;
+  const int* s_cnt_;
+  const unsigned char* s_elig_;
+  const int* aff_cnt;
+
+  __device__ bool feas(int n) const { return n != c && dest_ok[n] && frow[n] && t.gate(n); }
+  // per requested resource max(free, 0) / req, the BIG of ops/pack for a
+  // resource the group does not request
+  __device__ int fit_count(int n) const {
+    const int e = static_cast<int>(idx[n]) - 1;
+    const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
+    unsigned fc = UINT_MAX;
+    for (int r = 0; r < R; ++r) {
+      const int s = s_sh[r];
+      unsigned q = static_cast<unsigned>(kBig);
+      if (s != kNoLimit) {
+        int fr = __ldg(frw + r);
+        if (e >= 0) fr = wsub(fr, debit[e * R + r]);
+        q = quotient(fr, s_mul[r], s);
+      }
+      fc = min(fc, q);
+    }
+    return static_cast<int>(fc);
+  }
+  __device__ int placed(int n) const {
+    const int e = static_cast<int>(idx[n]) - 1;
+    return e >= 0 ? splaced[e] : 0;
+  }
+  __device__ void place(int n, int v) const {
+    int row = static_cast<int>(idx[n]) - 1;
+    if (row < 0) {
+      row = atomicAdd(rows, 1);
+      idx[n] = static_cast<unsigned short>(row + 1);
+      for (int r = 0; r < R; ++r) debit[row * R + r] = mul_wrap(v, s_req[r]);
+      splaced[row] = v;
+    } else {
+      for (int r = 0; r < R; ++r)
+        debit[row * R + r] = wadd(debit[row * R + r], mul_wrap(v, s_req[r]));
+      splaced[row] += v;
+    }
+  }
+  __device__ int s_cnt(int n) const { return s_cnt_[n]; }
+  __device__ bool s_elig(int n) const { return s_elig_[n] != 0 && n != c; }
+  __device__ bool a_ok(int n) const {
+    return a_kind == 1 ? aff_cnt[n] > 0 : (t.zval[n] != 0 && t.aff_adj[t.zone_of(n)] > 0);
+  }
+  __device__ bool zval(int n) const { return t.zval[n] != 0; }
+  __device__ int zone_of(int n) const { return t.zone_of(n); }
+};
+
+template <typename T>
+__device__ __forceinline__ const T* field(const Params& p, Field f) {
+  return static_cast<const T*>(p.ptr[f]);
 }
 
+template <bool kTopo>
 __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int R, int G, int P,
-                                                            int MPN, int K, int explain) {
+                                                            int MPN, int K, int Z, int max_waves,
+                                                            int explain) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = layout(N, R, MPN, K);
+  const Layout L = layout(N, R, MPN, K, kTopo ? Z : 0);
   unsigned* s_scan = reinterpret_cast<unsigned*>(smem + L.scan);
   int* misc = reinterpret_cast<int*>(smem + L.misc);
   int* s_req = reinterpret_cast<int*>(smem + L.req);
@@ -264,6 +385,18 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
   const int n_groups = __syncthreads_count(tid < n_mov && my_before == 0);
   const int filled = n_groups < K ? n_groups : K;
 
+  // the topology mode's arrays and the waves' node range [w0, w1)
+  int* zone = reinterpret_cast<int*>(smem + L.zone);
+  int *anti_adj = zone, *aff_adj = zone + Z, *czb = zone + 2 * Z, *ezb = zone + 3 * Z,
+      *zone_placed = zone + 4 * Z, *zone_cap = zone + 5 * Z;
+  int* splaced = reinterpret_cast<int*>(smem + L.splaced);
+  int* fit = reinterpret_cast<int*>(smem + L.fit);
+  const int kw = (N + blockDim.x - 1) / blockDim.x;
+  const int w0 = min(tid * kw, N);
+  const int w1 = min(w0 + kw, N);
+  Block wblk(reinterpret_cast<unsigned*>(smem + L.blk));
+  unsigned long long lane_waves = 0, waved_slots = 0;  // thread 0's sums
+
   // 3. the K-step first fit, slot by slot
   unsigned long long needed = 0;  // thread 0's sum of the nodes the slots needed
   unsigned parity = 0;
@@ -282,7 +415,75 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
     }
     const bool limit = limit_one[gi] != 0;
     const unsigned char* __restrict__ frow = feas + static_cast<size_t>(gi) * N;
+    Topo topo{};
+    bool waved = false;
+    if constexpr (kTopo) {
+      // the ghost node: g's zone totals less what c holds in its own zone
+      const size_t gn = static_cast<size_t>(gi) * N;
+      const int a_kind = field<int>(p, kAKind)[gi];
+      waved = field<int>(p, kSKind)[gi] > 0 || a_kind > 0 || field<unsigned char>(p, kAnti)[gi];
+      topo = Topo{field<int>(p, kZcl), field<unsigned char>(p, kZval), Z, anti_adj, aff_adj,
+                  a_kind == 2 && !field<unsigned char>(p, kASelf)[gi]};
+      if (tid < Z) {
+        const size_t gz = static_cast<size_t>(gi) * Z + tid;
+        const bool dz = tid == topo.zone_of(c) && topo.zval[c];
+        anti_adj[tid] =
+            wsub(field<int>(p, kAntiZone)[gz], dz ? field<int>(p, kAntiCnt)[gn + c] : 0);
+        aff_adj[tid] = wsub(field<int>(p, kAffZone)[gz], dz ? field<int>(p, kAffCnt)[gn + c] : 0);
+        czb[tid] = wsub(field<int>(p, kCntZone)[gz], dz ? field<int>(p, kSCnt)[gn + c] : 0);
+        ezb[tid] = wsub(field<int>(p, kEligZone)[gz],
+                        dz ? field<unsigned char>(p, kSElig)[gn + c] : 0) > 0;
+        zone_placed[tid] = 0;
+      }
+      if (waved)
+        for (int e = tid; e < misc[kRows]; e += blockDim.x) splaced[e] = 0;
+    }
     __syncthreads();
+    if constexpr (kTopo) {
+      if (waved) {  // block-uniform: the wave placer, then the slot's runs
+        const size_t gn = static_cast<size_t>(gi) * N;
+        const DrainLane dl{free0, debit, idx, splaced, &misc[kRows], R, c, s_req, s_mul, s_sh,
+                             frow, dest_ok, topo, field<int>(p, kAKind)[gi],
+                             field<int>(p, kSCnt) + gn, field<unsigned char>(p, kSElig) + gn,
+                             field<int>(p, kAffCnt) + gn};
+        const WaveGroup wg{want,
+                           limit,
+                           field<int>(p, kSKind)[gi],
+                           field<int>(p, kSSkew)[gi],
+                           field<unsigned char>(p, kSSelf)[gi] != 0,
+                           dl.a_kind,
+                           field<unsigned char>(p, kASelf)[gi] != 0,
+                           field<unsigned char>(p, kAAny)[gi] != 0,
+                           field<unsigned char>(p, kAnti)[gi] != 0,
+                           kConBig};
+        const int waves = place_waves(wblk, dl, wg, N, Z, w0, w1, max_waves, fit, zone_placed,
+                                      zone_cap, czb, ezb, field<int>(p, kPerm),
+                                      field<int>(p, kSkey));
+        // the runs: the slot's per-node totals in node order
+        unsigned tsum = 0;
+        for (int n = w0; n < w1; ++n) tsum += static_cast<unsigned>(dl.placed(n));
+        unsigned total;
+        int ex = static_cast<int>(wblk.excl(tsum, total));
+        for (int n = w0; n < w1; ++n) {
+          const int v = dl.placed(n);
+          if (v > 0) {
+            const int e = atomicAdd(&misc[kRuns], 1);
+            rnode[e] = n;
+            rlo[e] = ex;
+            rhi[e] = ex + v;
+            rslot[e] = j;
+          }
+          ex += v;
+        }
+        __syncthreads();  // the slot's runs and debit rows
+        if (tid == 0) {
+          placed[j] = static_cast<int>(total);
+          lane_waves += static_cast<unsigned long long>(waves);
+          ++waved_slots;
+        }
+        continue;
+      }
+    }
     int running = 0;
     for (int base = 0; base < N && running < want; base += tile) {
       const int n0 = base + tid * kNodesPerThread;
@@ -292,7 +493,9 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
       for (int i = 0; i < kNodesPerThread; ++i) {
         const int n = n0 + i;
         int v = 0;
-        if (n < N && n != c && dest_ok[n] && frow[n]) {
+        bool ok = n < N && n != c && dest_ok[n] && frow[n];
+        if constexpr (kTopo) ok = ok && topo.gate(n);
+        if (ok) {
           unsigned q = static_cast<unsigned>(kBig);
           const int e = static_cast<int>(idx[n]) - 1;
           const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
@@ -381,6 +584,11 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
     }
     if (needed)
       atomicAdd(static_cast<unsigned long long*>(const_cast<void*>(p.ptr[kNodes])), needed);
+    if (waved_slots) {
+      unsigned long long* w = static_cast<unsigned long long*>(const_cast<void*>(p.ptr[kWaves]));
+      atomicAdd(w, lane_waves);
+      atomicAdd(w + 1, waved_slots);
+    }
   }
   if (!explain && tid < MPN) {
     int d = -1;
@@ -402,12 +610,12 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
 
 }  // namespace
 
-// Per device, read once: the opt-in shared-memory limit, and the dynamic
-// shared-memory size the kernel's attribute allows so far.
+// Per device, read once: the opt-in shared-memory limit, and per instance
+// the dynamic shared-memory size the kernel's attribute allows so far.
 constexpr int kMaxDevices = 64;
 static std::mutex g_mu;
 static int g_max_smem[kMaxDevices];
-static size_t g_allowed[kMaxDevices];
+static size_t g_allowed[kMaxDevices][2];
 
 static int max_smem(int dev) {
   if (g_max_smem[dev] == 0 &&
@@ -417,26 +625,28 @@ static int max_smem(int dev) {
   return g_max_smem[dev];
 }
 
-// The CTA size of a launch at (N, R, MPN, K) on the current device, or -1
-// when no launch fits (the window past 1,024 places, or the shared memory
-// past the device's opt-in limit).
-extern "C" int ka_drain_threads(int N, int R, int MPN, int K) {
-  if (N <= 0 || R <= 0 || MPN <= 0 || K <= 0) return -1;
+// The CTA size of a launch at (N, R, MPN, K) on the current device, Z > 0
+// in the topology mode with Z zones, or -1 when no launch fits (the window
+// past 1,024 places, more zones or resources than threads, or the shared
+// memory past the device's opt-in limit).
+extern "C" int ka_drain_threads(int N, int R, int MPN, int K, int Z) {
+  if (N <= 0 || R <= 0 || MPN <= 0 || K <= 0 || Z < 0) return -1;
   const int threads = drain_threads(MPN);
-  if (threads < 0 || R > threads) return -1;
+  if (threads < 0 || R > threads || Z > threads) return -1;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return -1;
   std::lock_guard<std::mutex> lock(g_mu);
   const int limit = max_smem(dev);
-  if (limit < 0 || layout(N, R, MPN, K).end > static_cast<size_t>(limit)) return -1;
+  if (limit < 0 || layout(N, R, MPN, K, Z).end > static_cast<size_t>(limit)) return -1;
   return threads;
 }
 
 extern "C" int ka_drain(const void* const* ptrs, int C, int N, int R, int G, int P, int MPN, int K,
-                        int explain, void* stream) {
+                        int Z, int max_waves, int explain, void* stream) {
   if (C <= 0) return 0;
   const int threads = drain_threads(MPN);
-  if (N <= 0 || R <= 0 || G < 0 || P < 0 || MPN <= 0 || K <= 0 || threads < 0 || R > threads)
+  if (N <= 0 || R <= 0 || G < 0 || P < 0 || MPN <= 0 || K <= 0 || Z < 0 || threads < 0 ||
+      R > threads || Z > threads)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -444,20 +654,31 @@ extern "C" int ka_drain(const void* const* ptrs, int C, int N, int R, int G, int
   if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   Params p;
   for (int i = 0; i < kNumFields; ++i) p.ptr[i] = ptrs[i];
-  const size_t smem = layout(N, R, MPN, K).end;
+  const bool topo = Z > 0;
+  const size_t smem = layout(N, R, MPN, K, Z).end;
   {
     std::lock_guard<std::mutex> lock(g_mu);
     const int limit = max_smem(dev);
     if (limit < 0 || smem > static_cast<size_t>(limit))
       return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024 && smem > g_allowed[dev]) {
-      err = cudaFuncSetAttribute(drain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
+    size_t& allowed = g_allowed[dev][topo ? 1 : 0];
+    if (smem > 48 * 1024 && smem > allowed) {
+      err = topo ? cudaFuncSetAttribute(drain_kernel<true>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem))
+                 : cudaFuncSetAttribute(drain_kernel<false>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
-      g_allowed[dev] = smem;
+      allowed = smem;
     }
   }
-  drain_kernel<<<static_cast<unsigned>(C), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, N, R, G, P, MPN, K, explain);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (topo)
+    drain_kernel<true><<<static_cast<unsigned>(C), threads, smem, st>>>(p, N, R, G, P, MPN, K, Z,
+                                                                      max_waves, explain);
+  else
+    drain_kernel<false><<<static_cast<unsigned>(C), threads, smem, st>>>(p, N, R, G, P, MPN, K, 0,
+                                                                       0, explain);
   return static_cast<int>(cudaGetLastError());
 }

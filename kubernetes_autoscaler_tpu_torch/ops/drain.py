@@ -18,14 +18,13 @@ version, in chunks of candidates.
 With `with_constraints` the re-placement is topology-aware: host-level
 gates join the predicate plane, the candidate's own residents leave its
 zone's counts before its pods are re-placed (the reference's ghost node),
-and constrained groups re-place through the wave placer
-(ops/constrained.place_lanes), the candidates of a chunk being its lanes
-and `active` the (candidate, slot) lanes whose group is constrained and has
-pods, so the sweep itself reads nothing to the host. That sweep is the
-plain chunked loop (`drain_kernel.sweep_plain` with the topology) on either
-device. Only the gathered group of each (candidate, slot) is gated, as a
-[C, N] plane built from [C, Z] adjusted zone counts; no [C, G, N] plane is
-formed.
+and constrained groups re-place by waves (the reference's
+`place_group_constrained`). `topo_inputs` is its candidate-independent
+preparation, in plain torch; the sweep is the same drain kernel
+(`drain_kernel.sweep` with `topo`): on the card one launch, each
+candidate's waves inside its CTA, reading nothing back to the host; on the
+CPU its plain version, whose constrained slots re-place through
+ops/constrained.place_lanes.
 
 A node with more than `max_groups_per_node` distinct shapes is reported
 undrainable (its overflow pods count in n_failed). The chunk size changes
@@ -52,11 +51,7 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     ScheduledPodTensors,
     _Tree,
 )
-from kubernetes_autoscaler_tpu_torch.ops.constrained import (
-    BIG,
-    GroupConstraints,
-    zone_agg,
-)
+from kubernetes_autoscaler_tpu_torch.ops.constrained import zone_agg
 from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
 from kubernetes_autoscaler_tpu_torch.ops.kernels.drain_kernel import (
     DRAIN_BLOCKED_BY_POD,
@@ -64,6 +59,7 @@ from kubernetes_autoscaler_tpu_torch.ops.kernels.drain_kernel import (
     DRAIN_OK,
     DRAIN_TOO_MANY_SHAPES,
     SweepInputs,
+    TopoInputs,
     default_chunk,
 )
 from kubernetes_autoscaler_tpu_torch.ops.predicates import feasibility_mask
@@ -154,10 +150,10 @@ def failure_reasons(
 def sweep_inputs(nodes: NodeTensors, specs: PodGroupTensors,
                  scheduled: ScheduledPodTensors, candidates: torch.Tensor,
                  dest_allowed: torch.Tensor, max_pods_per_node: int,
-                 topo: "_Topology | None" = None) -> SweepInputs:
+                 host_gate: torch.Tensor | None = None) -> SweepInputs:
     """The placement-independent preparation of the sweep, in plain torch:
-    the predicate plane (with the topology's host gates), the allowed
-    destinations, and the resident pods sorted by node so that each
+    the predicate plane (with the topology's `host_gate`, bool[G, N]), the
+    allowed destinations, and the resident pods sorted by node so that each
     candidate's pods are one window of `pad_order`."""
     n = nodes.n
     mpn = max_pods_per_node
@@ -167,8 +163,8 @@ def sweep_inputs(nodes: NodeTensors, specs: PodGroupTensors,
     feas_gn = feasibility_mask(nodes, specs, check_resources=False)
     resident = resident_group_counts(scheduled, specs.g, n)
     feas_gn = feas_gn & ~(specs.anti_affinity_self[:, None] & (resident > 0))
-    if topo is not None:
-        feas_gn = feas_gn & topo.host_gate
+    if host_gate is not None:
+        feas_gn = feas_gn & host_gate
     dest_ok = dest_allowed & nodes.valid & nodes.ready & nodes.schedulable
 
     # resident pods sorted by node: each candidate's pods are one window
@@ -190,113 +186,58 @@ def sweep_inputs(nodes: NodeTensors, specs: PodGroupTensors,
         req=specs.req.contiguous())
 
 
+def topo_inputs(nodes: NodeTensors, specs: PodGroupTensors,
+                planes: AffinityPlanes,
+                max_zones: int) -> tuple[TopoInputs, torch.Tensor]:
+    """The topology-aware sweep's candidate-independent preparation, in
+    plain torch (the reference's drain.py:195-219): (TopoInputs, the host
+    gates bool[G, N] that join the predicate plane)."""
+    from kubernetes_autoscaler_tpu_torch.ops.predicates import selector_match
+
+    zval = nodes.zone_id > 0
+    zone_kinds = (specs.spread_kind == 2) | (specs.aff_kind == 2)
+    host_aff = (specs.aff_kind == 1) & ~specs.aff_self
+    host_gate = ((planes.anti_host_cnt == 0)
+                 & torch.where(host_aff[:, None], planes.aff_cnt > 0, True)
+                 & torch.where(zone_kinds[:, None], zval[None, :], True))
+    elig_host = selector_match(nodes.label_hash, specs) & nodes.valid[None, :]
+    s_elig = torch.where((specs.spread_kind == 2)[:, None],
+                         elig_host & zval[None, :], elig_host)
+    topo = TopoInputs(
+        zone_cl=nodes.zone_id.clamp(0, max_zones - 1).to(torch.int32)
+        .contiguous(),
+        zone_valid=zval.contiguous(),
+        s_kind=specs.spread_kind.contiguous(),
+        s_skew=specs.max_skew.contiguous(),
+        s_self=specs.spread_self.contiguous(),
+        a_kind=specs.aff_kind.contiguous(),
+        a_self=specs.aff_self.contiguous(),
+        a_any=specs.aff_match_any.contiguous(),
+        anti_self_zone=specs.anti_self_zone.contiguous(),
+        spread_cnt=planes.spread_cnt.contiguous(),
+        aff_cnt=planes.aff_cnt.contiguous(),
+        anti_zone_cnt=planes.anti_zone_cnt.contiguous(),
+        s_elig=s_elig.contiguous(),
+        anti_zone=zone_agg(planes.anti_zone_cnt, nodes.zone_id, max_zones),
+        aff_zone=zone_agg(planes.aff_cnt, nodes.zone_id, max_zones),
+        cnt_zone=zone_agg(planes.spread_cnt, nodes.zone_id, max_zones),
+        elig_zone=zone_agg(s_elig, nodes.zone_id, max_zones))
+    return topo, host_gate
+
+
 def _sweep(nodes, specs, scheduled, candidates, dest_allowed,
            max_pods_per_node, chunk, max_groups_per_node, explain: bool,
            planes: AffinityPlanes | None = None, max_zones: int = 16):
     """The sweep behind both entry points: RemovalResult, or with `explain`
-    the RemovalReasons of the same first fit. Without `planes` it is the
-    drain kernel's wrapper (`drain_kernel.sweep`: one launch on the card,
-    the plain version on the CPU); `planes` turns on the topology-aware
-    re-placement, the plain chunked sweep with the wave placer in its
-    constrained slots."""
-    topo = _Topology(nodes, specs, planes, max_zones) if planes is not None \
-        else None
+    the RemovalReasons of the same first fit: the drain kernel's wrapper
+    (`drain_kernel.sweep`: one launch on the card, the plain version on the
+    CPU); `planes` turns on the topology-aware re-placement."""
+    topo = host_gate = None
+    if planes is not None:
+        topo, host_gate = topo_inputs(nodes, specs, planes, max_zones)
     inp = sweep_inputs(nodes, specs, scheduled, candidates, dest_allowed,
-                       max_pods_per_node, topo)
-    if topo is None:
-        out = drain_kernel.sweep(inp, max_groups_per_node, explain, chunk)
-    else:
-        out = drain_kernel.sweep_plain(inp, max_groups_per_node, explain,
-                                       chunk, topo=topo, max_zones=max_zones)
+                       max_pods_per_node, host_gate)
+    out = drain_kernel.sweep(inp, max_groups_per_node, explain, chunk, topo)
     if explain:
         return RemovalReasons(*out)
     return RemovalResult(*out, feas=inp.feas)
-
-
-class _Topology:
-    """The constrained sweep's candidate-independent state: host-level gates
-    and zone aggregates over the real nodes; `zone_gate` and
-    `lane_constraints` adjust the zone counts per candidate (its residents
-    leave its zone) for the group gathered on each lane."""
-
-    def __init__(self, nodes: NodeTensors, specs: PodGroupTensors,
-                 planes: AffinityPlanes, max_zones: int):
-        from kubernetes_autoscaler_tpu_torch.ops.predicates import (
-            selector_match,
-        )
-
-        self.specs, self.planes, self.max_zones = specs, planes, max_zones
-        n = nodes.n
-        self.zval = nodes.zone_id > 0
-        self.zcl = nodes.zone_id.clamp(0, max_zones - 1)
-        self.zones = torch.arange(max_zones, dtype=self.zcl.dtype,
-                                  device=self.zcl.device)
-        self.node_ids = torch.arange(n, dtype=torch.int32,
-                                     device=self.zcl.device)
-        zone_kinds = (specs.spread_kind == 2) | (specs.aff_kind == 2)
-        self.host_gate = ((planes.anti_host_cnt == 0)
-                          & torch.where(((specs.aff_kind == 1)
-                                         & ~specs.aff_self)[:, None],
-                                        planes.aff_cnt > 0, True)
-                          & torch.where(zone_kinds[:, None],
-                                        self.zval[None, :], True))
-        self.anti_zone = zone_agg(planes.anti_zone_cnt, nodes.zone_id,
-                                  max_zones)
-        self.aff_zone = zone_agg(planes.aff_cnt, nodes.zone_id, max_zones)
-        self.cnt_zone = zone_agg(planes.spread_cnt, nodes.zone_id, max_zones)
-        elig_host = selector_match(nodes.label_hash, specs) \
-            & nodes.valid[None, :]
-        self.s_elig = torch.where((specs.spread_kind == 2)[:, None],
-                                  elig_host & self.zval[None, :], elig_host)
-        self.elig_zone = zone_agg(self.s_elig, nodes.zone_id, max_zones)
-        self.is_con = ((specs.spread_kind > 0) | (specs.aff_kind > 0)
-                       | specs.anti_self_zone)
-        self.aff2 = (specs.aff_kind == 2) & ~specs.aff_self
-
-    def _adjusted(self, agg: torch.Tensor, plane: torch.Tensor,
-                  gi: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """i32[C, Z]: the zone totals `agg` of group gi[k], less what
-        candidate c[k] holds in its own zone (`plane[gi, c]`)."""
-        dz = ((self.zones[None, :] == self.zcl[c][:, None])
-              & self.zval[c][:, None]).to(torch.int32)
-        return agg[gi] - dz * plane[gi, c][:, None]
-
-    def _at_nodes(self, per_zone: torch.Tensor) -> torch.Tensor:
-        """[C, Z] → [C, N]: each node's zone's value."""
-        return per_zone.gather(
-            1, self.zcl.long()[None, :].expand(per_zone.shape[0], -1))
-
-    def zone_gate(self, gi: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """bool[C, N]: the zone-level anti-affinity block and non-self zone
-        affinity of group gi[k] with candidate c[k] drained."""
-        anti = self._adjusted(self.anti_zone, self.planes.anti_zone_cnt, gi, c)
-        aff = self._adjusted(self.aff_zone, self.planes.aff_cnt, gi, c)
-        gate = ~(self.zval[None, :] & (self._at_nodes(anti) > 0))
-        return gate & torch.where(self.aff2[gi][:, None],
-                                  self.zval[None, :] & (self._at_nodes(aff) > 0),
-                                  True)
-
-    def lane_constraints(self, gi: torch.Tensor,
-                         c: torch.Tensor) -> GroupConstraints:
-        """The wave placer's constraints for group gi[k] re-placing the pods
-        of candidate c[k], one lane each."""
-        specs, planes = self.specs, self.planes
-        aff = self._adjusted(self.aff_zone, planes.aff_cnt, gi, c)
-        elig = self._adjusted(self.elig_zone, self.s_elig, gi, c) > 0
-        return GroupConstraints(
-            s_kind=specs.spread_kind[gi], s_skew=specs.max_skew[gi],
-            s_self=specs.spread_self[gi],
-            s_cnt_node=planes.spread_cnt[gi],
-            s_elig=self.s_elig[gi] & (self.node_ids[None, :] != c[:, None]),
-            a_kind=specs.aff_kind[gi], a_self=specs.aff_self[gi],
-            a_any=specs.aff_match_any[gi],
-            a_ok_node=torch.where(
-                (specs.aff_kind[gi] == 1)[:, None], planes.aff_cnt[gi] > 0,
-                self.zval[None, :] & (self._at_nodes(aff) > 0)),
-            anti_self_zone=specs.anti_self_zone[gi],
-            cnt_zone_base=self._adjusted(self.cnt_zone, planes.spread_cnt,
-                                         gi, c),
-            elig_zone_base=elig,
-            min_host_base=torch.full(gi.shape, BIG,
-                                     dtype=torch.int32, device=gi.device),
-            zone_cl=self.zcl[None, :], zone_valid=self.zval[None, :])

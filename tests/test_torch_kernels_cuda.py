@@ -6,7 +6,8 @@ installed: `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.
 Without a CUDA device every test skips. Tolerance: none (integer outputs,
 the constrained wave placer's and the drain sweep's int32 wrap-around
 included; the histogram scatter's f32 sums are added in the same order as
-the plain version's). `-k drain` runs the drain sweep's alone.
+the plain version's). `-k drain` runs the drain sweep's alone, `-k topo`
+its topology mode's.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from kubernetes_autoscaler_tpu_torch.ops.kernels import (
     constrained_kernel,
     drain_cases,
     drain_kernel,
+    drain_topo_cases,
     hist_cases,
     histogram_kernel,
     pack_cases,
@@ -533,3 +535,145 @@ def test_drain_kernel_rejects_what_it_does_not_take(cuda):
     n = 200_000
     with pytest.raises(ValueError):
         drain_kernel.threads(n, 4, 16, 4)
+
+
+# ------------------------------------------- the drain sweep's topology mode
+
+
+def _topo_equal(inp, topo, kk, plain_device=None):
+    """The kernel's topology mode on `inp`, `topo` (CUDA tensors) against
+    the plain version (on `plain_device`, the CPU by default), in both
+    modes: one drain launch each and no wave placer launch. Returns the
+    kernel's (lane-waves, waved lanes) of the sweep and the plain version's
+    active lanes."""
+    dev = torch.device(plain_device or "cpu")
+    counter = drain_kernel.wave_counter(inp.free.device)
+    for explain in (False, True):
+        lanes = drain_kernel.sweep_plain.active_lanes
+        want = drain_kernel.sweep_plain(inp.to(dev), kk, explain,
+                                        topo=topo.to(dev))
+        lanes = drain_kernel.sweep_plain.active_lanes - lanes
+        before = (drain_kernel.launch.launches,
+                  constrained_kernel.launch.launches)
+        counter.zero_()
+        got = drain_kernel.sweep(inp, kk, explain, topo=topo)
+        torch.cuda.synchronize()
+        assert (drain_kernel.launch.launches,
+                constrained_kernel.launch.launches) == \
+            (before[0] + 1, before[1])
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape, (explain, k)
+            assert torch.equal(g.cpu(), w.cpu()), \
+                f"output {k} (explain={explain}) differs from the plain version"
+        waves, waved = counter.tolist()
+        assert waved == lanes and waves >= lanes
+        if not explain:
+            out = (waves, waved, lanes)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(drain_topo_cases.CASES))
+def test_drain_topo_kernel_cases(cuda, name):
+    case = drain_topo_cases.CASES[name]().to(cuda)
+    inp, topo = case.inputs()
+    _, waved, _ = _topo_equal(inp, topo, case.max_groups_per_node)
+    assert waved > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["constrained", "sidecar", "wide_zones"])
+def test_drain_topo_kernel_every_lane_active(cuda, shape):
+    """Every (candidate, slot) lane with pods re-places by waves: at
+    [constrained]'s widths (N = 5,120, G = 64, MPN = 128, K = 16, Z = 16;
+    1,280 candidates), at a sidecar lane's N = 8,192 and at N = 1,031 with
+    K = 6; the plain version on the card."""
+    case = {
+        "constrained": lambda: drain_topo_cases.world(0, 5120, 64, 128,
+                                                      candidates=1280),
+        "sidecar": lambda: drain_topo_cases.world(1, 8192, 64, 128,
+                                                  candidates=256),
+        "wide_zones": lambda: drain_topo_cases.world(2, 1031, 12, 24, kk=6),
+    }[shape]().to(cuda)
+    inp, topo = case.inputs()
+    waves, waved, lanes = _topo_equal(inp, topo, case.max_groups_per_node,
+                                      plain_device=cuda)
+    assert waved == lanes > 0
+
+
+@pytest.mark.cuda
+def test_drain_topo_one_launch_no_wave_placer_and_no_host_read(cuda):
+    """`simulate_removals(..., with_constraints=True)` on CUDA tensors: one
+    drain launch, no wave placer launch, no plain sweep, nothing read back
+    to the host; equal to the CPU's."""
+    from kubernetes_autoscaler_tpu_torch.ops import constrained
+
+    case = drain_topo_cases.CASES["every_kind"]()
+    kw = dict(max_pods_per_node=case.max_pods_per_node,
+              max_groups_per_node=case.max_groups_per_node,
+              max_zones=case.max_zones, with_constraints=True)
+
+    def args(c):
+        return (c.nodes, c.specs, c.scheduled, c.candidates, c.dest_allowed)
+
+    want = drain.simulate_removals(*args(case), planes=case.planes, **kw)
+    card = case.to(cuda)
+    before = (drain_kernel.launch.launches, constrained_kernel.launch.launches,
+              drain_kernel.sweep_plain.active_lanes,
+              constrained.place_lanes.waves,
+              constrained.place_lanes.flag_reads)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = drain.simulate_removals(*args(card), planes=card.planes, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (drain_kernel.launch.launches, constrained_kernel.launch.launches,
+            drain_kernel.sweep_plain.active_lanes,
+            constrained.place_lanes.waves,
+            constrained.place_lanes.flag_reads) == \
+        (before[0] + 1,) + before[1:]
+    for k, v in vars(want).items():
+        assert torch.equal(getattr(got, k).cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_drain_topo_kernel_counts_its_waves(cuda):
+    """The MAX_WAVES case: its one waved lane runs exactly the cap."""
+    case = drain_topo_cases.CASES["max_waves"]().to(cuda)
+    inp, topo = case.inputs()
+    counter = drain_kernel.wave_counter(cuda)
+    counter.zero_()
+    drain_kernel.sweep(inp, case.max_groups_per_node, False, topo=topo)
+    torch.cuda.synchronize()
+    waves, waved = counter.tolist()
+    assert waved >= 1 and waves >= constrained_kernel._con.MAX_WAVES
+    one = drain_topo_cases.CASES["max_waves"]().to(cuda)
+    one.candidates = one.candidates[3:4]
+    inp, topo = one.inputs()
+    counter.zero_()
+    drain_kernel.sweep(inp, one.max_groups_per_node, False, topo=topo)
+    torch.cuda.synchronize()
+    assert counter.tolist() == [constrained_kernel._con.MAX_WAVES, 1]
+
+
+@pytest.mark.cuda
+def test_drain_topo_kernel_rejects_what_it_does_not_take(cuda):
+    case = drain_topo_cases.CASES["mixed_slots"]().to(cuda)
+    inp, topo = case.inputs()
+    f = drain_kernel.sweep
+    with pytest.raises(TypeError):
+        f(inp, 4, False, topo=topo.replace(aff_cnt=topo.aff_cnt.long()))
+    with pytest.raises(ValueError):
+        f(inp, 4, False, topo=topo.replace(s_elig=topo.s_elig.cpu()))
+    with pytest.raises(ValueError):
+        f(inp, 4, False, topo=topo.replace(elig_zone=topo.elig_zone[:-1]))
+    with pytest.raises(ValueError):
+        f(inp, 4, False,
+          topo=topo.replace(spread_cnt=topo.spread_cnt.t().contiguous().t()))
+    # more zones than the CTA has threads
+    z = 300
+    wide = {k: torch.zeros((v.shape[0], z), dtype=v.dtype, device=cuda)
+            for k, v in vars(topo).items() if k.endswith("_zone")}
+    with pytest.raises(ValueError):
+        f(inp, 4, False, topo=topo.replace(**wide))

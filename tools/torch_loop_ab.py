@@ -16,9 +16,10 @@ step on the main world, 100 steps, then one step under torch.profiler; the
 line holds the step p50 and p90, the scale_down phase's p50 and p90, the
 device kernels a step, the busy share and the drain kernel's launches that
 the phase prints). With `--phase constrained` each run is the constrained
-fused step (`chip_smoke.constrained_steps` on `constrained_world`: step and
-filter-phase p50/p90, then one step under torch.profiler: device kernels a
-step and the busy share of the step p50); with `--phase loop-constrained`
+fused step (`chip_smoke.constrained_steps` on `constrained_world`: step,
+filter-phase and scale_down-phase p50/p90, the wave placer's and the drain
+kernel's launches a step, then one step under torch.profiler: device
+kernels a step and the busy share of the step p50); with `--phase loop-constrained`
 it is `chip_smoke.loop_constrained_phase` (loop ms, p50, p90, each loop
 phase's share of the loops' time). `--log-dir` keeps each run's whole
 output there (`PHASE-I.log`).
@@ -46,16 +47,23 @@ card = c.card_line()
 k1, k1_plain = pack_kernel.pack_groups_batched, pack_kernel.pack_groups_batched_plain
 if sys.argv[3] == "constrained":
     import contextlib, io
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
     enc, groups, step = c.constrained_world(Dims())
     step()
     c.torch.cuda.synchronize()
+    con0, d0 = c.con_launches(), drain_kernel.launch.launches
     ms, phase_ms, _, _ = c.constrained_steps(card, step)
+    con1, d1 = c.con_launches(), drain_kernel.launch.launches
     with contextlib.redirect_stdout(io.StringIO()):
         kernels, busy = c.profile_step(step, c.pct(ms, 50), None, tag="[constrained]")
-    f = phase_ms["filter"]
+    f, down = phase_ms["filter"], phase_ms["scale_down"]
     print(json.dumps({"tree": tree, "phase": "constrained", "ms": ms,
                       "p50": c.pct(ms, 50), "p90": c.pct(ms, 90),
                       "filter_p50": c.pct(f, 50), "filter_p90": c.pct(f, 90),
+                      "scale_down_p50": c.pct(down, 50),
+                      "scale_down_p90": c.pct(down, 90),
+                      "con_launches_per_step": (con1 - con0) / len(ms),
+                      "drain_launches_per_step": (d1 - d0) / len(ms),
                       "kernels": kernels, "busy": busy / c.pct(ms, 50),
                       "card": card}))
 elif sys.argv[3] == "loop-constrained":
