@@ -932,16 +932,26 @@ def drain_bound(inp, nodes_needed):
 
 def check_drain_topo(name, inp, topo, kk) -> tuple[int, int, int]:
     """Byte equality of the drain kernel's topology mode with the plain
-    version on the card, in both modes; returns (max abs difference, the
-    plain version's active lanes of the sweep, the kernel's waved lanes)."""
-    from kubernetes_autoscaler_tpu_torch.ops.kernels import drain_kernel
+    version on the card, in both modes; the plain version launches no
+    kernel (its waves are the plain wave placer's, not the kernels' wave
+    body). Returns (max abs difference, the plain version's active lanes
+    of the sweep, the kernel's waved lanes)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+        constrained_kernel,
+        drain_kernel,
+    )
 
     err = 0
     counter = drain_kernel.wave_counter(DEVICE)
     for explain in (False, True):
         lanes = drain_kernel.sweep_plain.active_lanes
+        launches = (constrained_kernel.launch.launches,
+                    drain_kernel.launch.launches)
         want = drain_kernel.sweep_plain(inp, kk, explain, topo=topo)
         lanes = drain_kernel.sweep_plain.active_lanes - lanes
+        if (constrained_kernel.launch.launches,
+                drain_kernel.launch.launches) != launches:
+            raise AssertionError(f"{name}: the plain sweep launched a kernel")
         counter.zero_()
         got = drain_kernel.sweep(inp, kk, explain, topo=topo)
         torch.cuda.synchronize()
@@ -2698,14 +2708,17 @@ def con_times(name, args, plain_reps):
     torch.cuda.synchronize()
     lane_waves = int(counter)
     bound, bound_by = con_bound(args, lane_waves)
+    b, n, r = args[0].shape
     t = {"launch": cuda_ms(kernel, REPS), "kernel": cuda_ms(kernel, REPS,
                                                              hold=True),
          "plain": cuda_ms(plain, plain_reps, warmup=1), "bound": bound,
-         "bound_by": bound_by, "lane_waves": lane_waves}
-    b = args[0].shape[0]
+         "bound_by": bound_by, "lane_waves": lane_waves,
+         "shape": (b, n, r, args[7])}
+    cfg = ck.config(*t["shape"])
     log(f"[kernels] constrained wave placer {name} (pack_lanes B={b} "
-        f"N={args[0].shape[-2]} R={args[0].shape[-1]}, {lane_waves} "
-        f"lane-waves a call): kernel {t['kernel']} ms device time, "
+        f"N={n} R={r}, {lane_waves} lane-waves a call; a cluster of "
+        f"{cfg['cluster']} CTAs of {cfg['threads']} threads a lane, "
+        f"{cfg['smem']} B of shared memory a CTA): kernel {t['kernel']} ms device time, "
         f"{t['launch']} ms as launched from Python; plain {t['plain']} ms on "
         f"the card; bound {bound} ms ({bound_by})")
     return t
@@ -2905,6 +2918,10 @@ def constrained_phase(dims, card, profile_dir=None):
     entry.update({"options_ms": t["launch"], "options_device_ms": t["kernel"],
                   "options_plain_ms": t["plain"],
                   "options_bound_ms": t["bound"]})
+    for name, t in times.items():   # the launch each pack took
+        cfg = ck.config(*t["shape"])
+        entry[f"{name}_cluster"] = cfg["cluster"]
+        entry[f"{name}_threads"] = cfg["threads"]
     t = d_times["sweep"]
     d_entry = {"launches": d_launches, "max_abs_err": d_err,
                "ms": t["launch"], "device_ms": t["kernel"],
@@ -4808,11 +4825,20 @@ def main() -> int:
                 hist_cases.out_of_bank_case(row, bucket, n), k3, k3_plain))
     ck = constrained_kernel
     con_err = 0
-    for name, case in con_cases.CASES.items():
-        case = case().to(DEVICE)
-        con_err = max(con_err, check_con(
-            f"case {name}", case.run(ck.place_lanes, ck.pack_lanes),
-            case.run(ck.place_lanes_plain, ck.pack_lanes_plain)))
+    choice = ck.launch_choice
+    try:
+        # each case (a "place" case as the pack_lanes call of its lanes) at
+        # the kernel's own cluster size and on a cluster of 16
+        for cluster in (0, 16):
+            ck.launch_choice = lambda b, n, r, z, cluster=cluster: (cluster, 0)
+            for name, case in con_cases.CASES.items():
+                case = con_cases.as_pack(case()).to(DEVICE)
+                con_err = max(con_err, check_con(
+                    f"case {name}, cluster {cluster or 'chosen'}",
+                    case.run(ck.place_lanes, ck.pack_lanes),
+                    case.run(ck.place_lanes_plain, ck.pack_lanes_plain)))
+    finally:
+        ck.launch_choice = choice
     drain_err = 0
     for name, case in drain_cases.CASES.items():
         case = case().to(DEVICE)
@@ -4949,8 +4975,9 @@ def main() -> int:
         "library_ms": None,
         "checked": True,
         "shapes": "[constrained]'s run_once_fused: the filter pack (pack_lanes "
-                  "B=1, N=5120, G=64; ms, device_ms, plain_ms, bound_ms "
-                  "there), the options pack (B=NG, N=max_new_nodes), 2 "
+                  "B=1, N=5120, G=64, a cluster of 16 CTAs; ms, device_ms, "
+                  "plain_ms, bound_ms there), the options pack (B=NG, "
+                  "N=max_new_nodes, one CTA a lane; options_*), 2 "
                   "launches a step (the drain's constrained slots run in the "
                   "drain kernel's topology mode); XLA's while_loop and scan, "
                   "no Pallas kernel; library_ms: no single PyTorch call "
@@ -4967,7 +4994,8 @@ def main() -> int:
         "checked": True,
         "shapes": "[main]'s run_once_fused: the scale-down sweep, every node a "
                   "candidate (C=N=5120, G=64, MPN=128, K=16; ms, device_ms, "
-                  "plain_ms, bound_ms there), one launch a step; the reason "
+                  "plain_ms, bound_ms there), one launch a step (its C entry "
+                  "runs the fit plane's pre-pass, then the sweep); the reason "
                   "pass (failure_reasons) is the same kernel; XLA's scan under "
                   "vmap, no Pallas kernel; library_ms: no single PyTorch call "
                   "computes a K-step first fit",

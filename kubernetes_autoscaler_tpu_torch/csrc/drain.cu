@@ -56,18 +56,28 @@
 // K x N x R plane in device memory (a [C, N, R] int32 plane of 210 MB a
 // chunk rewritten every slot) and ≈ 1,300 small launches a sweep.
 //
-// The design. One CTA of 256 threads (more only for a window of more than
-// 256 places) runs one candidate to its end: the window, one place a
-// thread; the compaction in shared memory over the movable pods only
-// (O(movable^2) compares, as the reference's tril count); then the slots in
-// turn, each sweeping the nodes in tiles of 4 nodes a thread with one
-// block-wide exclusive scan a tile (one barrier, double-buffered warp
-// totals), stopping after the tile where the running fit reaches the
-// slot's count. The free plane is never copied: a candidate changes free
-// capacity only where it places its own pods, at most MPN nodes, so a
-// node's free row is the shared plane read through the read-only cache
-// less the candidate's debit row for that node, kept in shared memory
-// (a u16 node -> debit-row index, 2N bytes, and at most MPN rows). Each
+// The design. A pre-pass (its own launch from the same C entry) builds the
+// candidate-independent fit plane fit0[g, n] = feas[g, n] && dest_ok[n] ?
+// min(fit_count(free[n], req[g]), MPN) : 0 as u16 [G, N rounded up to 8]
+// (655 KB at G = 64, N = 5,120: it stays in the L2). A slot's want is at
+// most MPN, so min(fit0, want) is min(fit_count, want) on every node the
+// candidate has not debited; a node it has debited is recomputed from the
+// shared plane less its debit row, and n != c, the zone gate, limit_one and
+// want apply per candidate after. Then one CTA of 256 threads (more only
+// for a window of more than 256 places) runs one candidate to its end: the
+// window, one place a thread; the compaction in shared memory over the
+// movable pods only (O(movable^2) compares, as the reference's tril
+// count); then the slots in turn, each sweeping the nodes in tiles of 8
+// nodes a thread (one 16-byte load of the plane row and one of the debit
+// index) with one block-wide exclusive scan a tile (one barrier,
+// double-buffered warp totals), stopping after the tile where the running
+// fit reaches the slot's count: a slot that fits nowhere reads 10 KB, not
+// the 164 KB of free rows. The free plane is never copied: a candidate
+// changes free capacity only where it places its own pods, at most MPN
+// nodes, so a node's free row is the shared plane read through the
+// read-only cache less the candidate's debit row for that node, kept in
+// shared memory (a u16 node -> debit-row index, 2N bytes, and at most MPN
+// rows). Each
 // placement is recorded as a run (node, slot, its rank interval
 // [exclusive prefix, + place)) in shared memory, and a window place finds
 // its destination as the run of its slot whose interval holds its rank: no
@@ -81,11 +91,15 @@
 // thread's contiguous nodes [tK, tK + K), K = ceil(N / threads), a fit row
 // of N int32 in shared memory (20 KB at N = 5,120), and the zone-sorted
 // permutation of the nodes, one row every candidate shares, from the
-// wrapper. The unconstrained sweep is the other instance of the template
-// and runs none of it.
+// wrapper; a wave's fit_count reads the fit plane where the node has no
+// debit row. The unconstrained sweep is the other instance of the
+// template and runs none of it. Each mode has an instance bounded at 256
+// threads (the usual window), which leaves the waves their registers, and
+// one at 1,024 for larger windows.
 //
 // Contract (checked by the Python wrapper): int32 and uint8 (bool)
-// contiguous tensors; candidates [C] in [0, N); starts [N]; pad_order
+// contiguous tensors; fit0 a u16 [G, N rounded up to 8] scratch the
+// pre-pass fills; candidates [C] in [0, N); starts [N]; pad_order
 // [P + MPN]; node_idx, group_ref, valid, movable, blocks [P]; free [N, R];
 // feas [G, N]; dest_ok [N]; limit_one [G]; req [G, R]; outputs [C] each
 // and dest_node, pod_slot [C, MPN]; `nodes` a u64 counter that each
@@ -117,7 +131,9 @@ enum Field {
   kDestOk, kLimit, kReq, kOut0, kOut1, kOut2, kOut3, kDest, kPodSlot, kNodes,
   // the topology mode's
   kZcl, kZval, kSKind, kSSkew, kSSelf, kAKind, kASelf, kAAny, kAnti, kSCnt, kAffCnt, kAntiCnt,
-  kSElig, kAntiZone, kAffZone, kCntZone, kEligZone, kPerm, kSkey, kWaves, kNumFields
+  kSElig, kAntiZone, kAffZone, kCntZone, kEligZone, kPerm, kSkey, kWaves,
+  // the fit plane's scratch
+  kFit0, kNumFields
 };
 
 struct Params {
@@ -130,7 +146,7 @@ constexpr int kReasonBlocked = 1;
 constexpr int kReasonNoPlace = 2;
 constexpr int kReasonTooMany = 3;
 
-constexpr int kNodesPerThread = 4;
+constexpr int kNodesPerThread = 8;  // one 16-byte load of u16 fits
 constexpr int kDrainThreads = 256;
 
 // indices into the shared scalar block
@@ -143,6 +159,15 @@ struct Layout {
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+// N rounded up to a whole 16-byte load of u16 values
+__host__ __device__ inline int padded(int N) { return (N + 7) & ~7; }
+
+// u16 value i (0..7, a constant once unrolled) of a 16-byte load
+__device__ __forceinline__ int half16(const uint4& v, int i) {
+  const unsigned w = i < 2 ? v.x : (i < 4 ? v.y : (i < 6 ? v.z : v.w));
+  return static_cast<int>((w >> ((i & 1) * 16)) & 0xffffu);
+}
 
 // Z > 0: the topology mode's arrays too
 __host__ __device__ inline Layout layout(int N, int R, int MPN, int K, int Z) {
@@ -167,12 +192,12 @@ __host__ __device__ inline Layout layout(int N, int R, int MPN, int K, int Z) {
   l.rslot = l.rhi + m4;           // i32 [MPN] its slot
   l.debit = l.rslot + m4;         // i32 [MPN][R] debit rows
   l.idx = align16(l.debit + m4 * R);  // u16 [N] debit row + 1 of each node (0: none)
-  l.end = align16(l.idx + static_cast<size_t>(N) * 2);
+  l.end = align16(l.idx + static_cast<size_t>(padded(N)) * 2);
   l.blk = l.zone = l.splaced = l.fit = l.end;
   if (Z > 0) {
     l.blk = l.end;                                        // u32 [kBlockWords]
-    l.zone = l.blk + kBlockWords * 4;                     // i32 [6][Z] the zone arrays
-    l.splaced = l.zone + 6 * static_cast<size_t>(Z) * 4;  // i32 [MPN] slot's placed by row
+    l.zone = l.blk + kBlockWords * 4;                     // i32 [5][Z] the zone arrays
+    l.splaced = l.zone + 5 * static_cast<size_t>(Z) * 4;  // i32 [MPN] slot's placed by row
     l.fit = align16(l.splaced + m4);                      // i32 [N] the waves' fit row
     l.end = l.fit + static_cast<size_t>(N) * 4;
   }
@@ -211,6 +236,7 @@ struct Topo {
 // count of a node beside the node's debit row, and the group's rows.
 struct DrainLane {
   const int* free0;
+  const unsigned short* fit0;  // the group's row of the fit plane
   int* debit;
   unsigned short* idx;
   int* splaced;   // [MPN] the slot's placed count by debit row
@@ -229,18 +255,19 @@ struct DrainLane {
 
   __device__ bool feas(int n) const { return n != c && dest_ok[n] && frow[n] && t.gate(n); }
   // per requested resource max(free, 0) / req, the BIG of ops/pack for a
-  // resource the group does not request
+  // resource the group does not request; capped at MPN (the fit plane)
+  // where the node has no debit row, which no wave's min with rem (at most
+  // MPN) can tell apart
   __device__ int fit_count(int n) const {
     const int e = static_cast<int>(idx[n]) - 1;
+    if (e < 0) return fit0[n];
     const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
     unsigned fc = UINT_MAX;
     for (int r = 0; r < R; ++r) {
       const int s = s_sh[r];
       unsigned q = static_cast<unsigned>(kBig);
       if (s != kNoLimit) {
-        int fr = __ldg(frw + r);
-        if (e >= 0) fr = wsub(fr, debit[e * R + r]);
-        q = quotient(fr, s_mul[r], s);
+        q = quotient(wsub(__ldg(frw + r), debit[e * R + r]), s_mul[r], s);
       }
       fc = min(fc, q);
     }
@@ -277,10 +304,46 @@ __device__ __forceinline__ const T* field(const Params& p, Field f) {
   return static_cast<const T*>(p.ptr[f]);
 }
 
-template <bool kTopo>
-__global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int R, int G, int P,
-                                                            int MPN, int K, int Z, int max_waves,
-                                                            int explain) {
+// The fit plane: fit0[g, n] = feas[g, n] && dest_ok[n] ? min(fit_count(
+// free[n], req[g]), MPN) : 0, and 0 past N. One thread a node, a row of
+// blocks a group.
+__global__ void __launch_bounds__(256) fit_plane_kernel(const int* __restrict__ free0,
+                                                        const unsigned char* __restrict__ feas,
+                                                        const unsigned char* __restrict__ dest_ok,
+                                                        const int* __restrict__ req,
+                                                        unsigned short* fit0, int N, int R,
+                                                        int MPN) {
+  extern __shared__ int codes[];  // u32 [R] multipliers, i32 [R] shift codes
+  unsigned* mu = reinterpret_cast<unsigned*>(codes);
+  int* sh = codes + R;
+  const int g = blockIdx.y;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    unsigned m;
+    int s;
+    divisor(req[static_cast<size_t>(g) * R + r], m, s);
+    mu[r] = m;
+    sh[r] = s;
+  }
+  __syncthreads();
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int Np = padded(N);
+  if (n >= Np) return;
+  int v = 0;
+  if (n < N && feas[static_cast<size_t>(g) * N + n] && dest_ok[n]) {
+    unsigned q = static_cast<unsigned>(kBig);
+    for (int r = 0; r < R; ++r) {
+      const int s = sh[r];
+      if (s != kNoLimit) q = min(q, quotient(free0[static_cast<size_t>(n) * R + r], mu[r], s));
+    }
+    v = min(static_cast<int>(q), MPN);
+  }
+  fit0[static_cast<size_t>(g) * Np + n] = static_cast<unsigned short>(v);
+}
+
+template <bool kTopo, int kMaxT>
+__global__ void __launch_bounds__(kMaxT) drain_kernel(Params p, int N, int R, int G, int P,
+                                                      int MPN, int K, int Z, int max_waves,
+                                                      int explain) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(N, R, MPN, K, kTopo ? Z : 0);
   unsigned* s_scan = reinterpret_cast<unsigned*>(smem + L.scan);
@@ -315,13 +378,15 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
   const unsigned char* __restrict__ dest_ok = static_cast<const unsigned char*>(p.ptr[kDestOk]);
   const unsigned char* __restrict__ limit_one = static_cast<const unsigned char*>(p.ptr[kLimit]);
   const int* __restrict__ req = static_cast<const int*>(p.ptr[kReq]);
+  const unsigned short* __restrict__ fit0 = static_cast<const unsigned short*>(p.ptr[kFit0]);
+  const int Np = padded(N);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const int ci = blockIdx.x;
   const int c = cand[ci];
   const bool c_ok = c >= 0 && c < N;
 
-  for (int i = tid; i < N; i += blockDim.x) idx[i] = 0;
+  for (int i = tid; i < Np; i += blockDim.x) idx[i] = 0;
   if (tid < kNumMisc) misc[tid] = 0;
 
   // 1. the window: one place a thread
@@ -388,7 +453,7 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
   // the topology mode's arrays and the waves' node range [w0, w1)
   int* zone = reinterpret_cast<int*>(smem + L.zone);
   int *anti_adj = zone, *aff_adj = zone + Z, *czb = zone + 2 * Z, *ezb = zone + 3 * Z,
-      *zone_placed = zone + 4 * Z, *zone_cap = zone + 5 * Z;
+      *zone_placed = zone + 4 * Z;
   int* splaced = reinterpret_cast<int*>(smem + L.splaced);
   int* fit = reinterpret_cast<int*>(smem + L.fit);
   const int kw = (N + blockDim.x - 1) / blockDim.x;
@@ -442,8 +507,9 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
     if constexpr (kTopo) {
       if (waved) {  // block-uniform: the wave placer, then the slot's runs
         const size_t gn = static_cast<size_t>(gi) * N;
-        const DrainLane dl{free0, debit, idx, splaced, &misc[kRows], R, c, s_req, s_mul, s_sh,
-                             frow, dest_ok, topo, field<int>(p, kAKind)[gi],
+        const DrainLane dl{free0, fit0 + static_cast<size_t>(gi) * Np, debit, idx, splaced,
+                           &misc[kRows], R, c, s_req, s_mul, s_sh, frow, dest_ok, topo,
+                           field<int>(p, kAKind)[gi],
                              field<int>(p, kSCnt) + gn, field<unsigned char>(p, kSElig) + gn,
                              field<int>(p, kAffCnt) + gn};
         const WaveGroup wg{want,
@@ -456,8 +522,8 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
                            field<unsigned char>(p, kAAny)[gi] != 0,
                            field<unsigned char>(p, kAnti)[gi] != 0,
                            kConBig};
-        const int waves = place_waves(wblk, dl, wg, N, Z, w0, w1, max_waves, fit, zone_placed,
-                                      zone_cap, czb, ezb, field<int>(p, kPerm),
+        const int waves = place_waves(wblk, dl, wg, N, Z, w0, w1, 0, N, max_waves, fit,
+                                      zone_placed, czb, ezb, field<int>(p, kPerm),
                                       field<int>(p, kSkey));
         // the runs: the slot's per-node totals in node order
         unsigned tsum = 0;
@@ -485,28 +551,40 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
       }
     }
     int running = 0;
+    const uint4* __restrict__ plane4 =
+        reinterpret_cast<const uint4*>(fit0 + static_cast<size_t>(gi) * Np);
+    const uint4* idx4 = reinterpret_cast<const uint4*>(idx);
     for (int base = 0; base < N && running < want; base += tile) {
       const int n0 = base + tid * kNodesPerThread;
       int f[kNodesPerThread];
       unsigned tsum = 0;
+      uint4 pv = make_uint4(0u, 0u, 0u, 0u), iv = pv;
+      if (n0 < N) {
+        pv = __ldg(plane4 + n0 / kNodesPerThread);
+        iv = idx4[n0 / kNodesPerThread];
+      }
 #pragma unroll
       for (int i = 0; i < kNodesPerThread; ++i) {
-        const int n = n0 + i;
-        int v = 0;
-        bool ok = n < N && n != c && dest_ok[n] && frow[n];
-        if constexpr (kTopo) ok = ok && topo.gate(n);
-        if (ok) {
-          unsigned q = static_cast<unsigned>(kBig);
-          const int e = static_cast<int>(idx[n]) - 1;
-          const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
-          for (int r = 0; r < R; ++r) {
-            const int s = s_sh[r];
-            if (s == kNoLimit) continue;
-            int fr = __ldg(frw + r);
-            if (e >= 0) fr = wsub(fr, debit[e * R + r]);
-            q = min(q, quotient(fr, s_mul[r], s));
+        const int n = n0 + i;  // past N: the plane and the index are 0 there
+        int v = half16(pv, i);
+        const int e = half16(iv, i) - 1;
+        if (e >= 0) {  // a node this candidate debited: free less its debit row
+          v = 0;
+          if (dest_ok[n] && frow[n]) {
+            unsigned q = static_cast<unsigned>(kBig);
+            const int* __restrict__ frw = free0 + static_cast<size_t>(n) * R;
+            for (int r = 0; r < R; ++r) {
+              const int s = s_sh[r];
+              if (s == kNoLimit) continue;
+              q = min(q, quotient(wsub(__ldg(frw + r), debit[e * R + r]), s_mul[r], s));
+            }
+            v = static_cast<int>(q);
           }
-          v = static_cast<int>(q);
+        }
+        if (v > 0) {
+          bool ok = n != c;
+          if constexpr (kTopo) ok = ok && topo.gate(n);
+          if (!ok) v = 0;
           if (limit) v = min(v, 1);
           v = min(v, want);
         }
@@ -615,7 +693,13 @@ __global__ void __launch_bounds__(kMaxThreads) drain_kernel(Params p, int N, int
 constexpr int kMaxDevices = 64;
 static std::mutex g_mu;
 static int g_max_smem[kMaxDevices];
-static size_t g_allowed[kMaxDevices][2];
+static size_t g_allowed[kMaxDevices][4];
+
+using DrainFn = void (*)(Params, int, int, int, int, int, int, int, int, int);
+// [topology mode][wide: more than kDrainThreads threads]
+static const DrainFn kDrainKernels[2][2] = {
+    {drain_kernel<false, kDrainThreads>, drain_kernel<false, kMaxThreads>},
+    {drain_kernel<true, kDrainThreads>, drain_kernel<true, kMaxThreads>}};
 
 static int max_smem(int dev) {
   if (g_max_smem[dev] == 0 &&
@@ -641,12 +725,13 @@ extern "C" int ka_drain_threads(int N, int R, int MPN, int K, int Z) {
   return threads;
 }
 
+// Two launches on the stream: the fit plane into `fit0`, then the sweep.
 extern "C" int ka_drain(const void* const* ptrs, int C, int N, int R, int G, int P, int MPN, int K,
                         int Z, int max_waves, int explain, void* stream) {
   if (C <= 0) return 0;
   const int threads = drain_threads(MPN);
-  if (N <= 0 || R <= 0 || G < 0 || P < 0 || MPN <= 0 || K <= 0 || Z < 0 || threads < 0 ||
-      R > threads || Z > threads)
+  if (N <= 0 || R <= 0 || G < 0 || P < 0 || MPN <= 0 || MPN > 0xffff || K <= 0 || Z < 0 ||
+      threads < 0 || R > threads || Z > threads)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -655,30 +740,36 @@ extern "C" int ka_drain(const void* const* ptrs, int C, int N, int R, int G, int
   Params p;
   for (int i = 0; i < kNumFields; ++i) p.ptr[i] = ptrs[i];
   const bool topo = Z > 0;
+  const bool wide = threads > kDrainThreads;
+  const DrainFn kernel = kDrainKernels[topo][wide];
   const size_t smem = layout(N, R, MPN, K, Z).end;
   {
     std::lock_guard<std::mutex> lock(g_mu);
     const int limit = max_smem(dev);
     if (limit < 0 || smem > static_cast<size_t>(limit))
       return static_cast<int>(cudaErrorInvalidValue);
-    size_t& allowed = g_allowed[dev][topo ? 1 : 0];
+    size_t& allowed = g_allowed[dev][topo * 2 + wide];
     if (smem > 48 * 1024 && smem > allowed) {
-      err = topo ? cudaFuncSetAttribute(drain_kernel<true>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        static_cast<int>(smem))
-                 : cudaFuncSetAttribute(drain_kernel<false>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        static_cast<int>(smem));
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
       allowed = smem;
     }
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (topo)
-    drain_kernel<true><<<static_cast<unsigned>(C), threads, smem, st>>>(p, N, R, G, P, MPN, K, Z,
-                                                                      max_waves, explain);
-  else
-    drain_kernel<false><<<static_cast<unsigned>(C), threads, smem, st>>>(p, N, R, G, P, MPN, K, 0,
-                                                                       0, explain);
+  if (G > 0) {
+    const dim3 grid(static_cast<unsigned>((padded(N) + 255) / 256), static_cast<unsigned>(G));
+    fit_plane_kernel<<<grid, 256, 2 * static_cast<size_t>(R) * 4, st>>>(
+        static_cast<const int*>(p.ptr[kFree]), static_cast<const unsigned char*>(p.ptr[kFeas]),
+        static_cast<const unsigned char*>(p.ptr[kDestOk]), static_cast<const int*>(p.ptr[kReq]),
+        static_cast<unsigned short*>(const_cast<void*>(p.ptr[kFit0])), N, R, MPN);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int z = topo ? Z : 0, waves = topo ? max_waves : 0;
+  void* args[] = {&p, &N, &R, &G, &P, &MPN, &K, &z, &waves, &explain};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(static_cast<unsigned>(C)),
+                         dim3(static_cast<unsigned>(threads)), args, smem, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

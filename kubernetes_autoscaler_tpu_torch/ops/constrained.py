@@ -25,8 +25,10 @@ the whole FFD group loop of a lane (`pack_groups_constrained` under vmap:
 B = 1 for the filter pack, B = node groups for the expansion options),
 constrained groups by waves and the others by the one-shot first fit, as
 the reference's `lax.cond(is_con[g], slow, fast)` picks. On CUDA tensors
-both are one launch of the hand-written kernel (csrc/constrained.cu): one
-CTA a lane runs every wave of the lane and the host reads nothing. On CPU
+`pack_lanes` is one launch of the hand-written kernel
+(csrc/constrained.cu): one thread-block cluster a lane runs every wave of
+the lane and the host reads nothing; `place_lanes` has no kernel and
+raises there (the card's drain waves run inside the drain kernel). On CPU
 tensors their plain versions run (ops/kernels/constrained_kernel.py): a
 Python loop of waves over all lanes, a finished lane frozen with
 `torch.where`, one "any lane active" flag read every WAVE_CHECK waves, and
@@ -182,11 +184,10 @@ def place_lanes(free: torch.Tensor,       # i32[B|1, N, R]
     waves. A lane with `active` false is left as `out` holds it (the input
     capacity and no placement without `out`; `out` is written in place).
 
-    The kernel on CUDA tensors, its plain version on CPU tensors
-    (ops/kernels/constrained_kernel.py). `place_lanes.waves` and
-    `place_lanes.flag_reads` count the plain version's waves and host
-    reads; the kernel reads nothing (`constrained_kernel.wave_counter`
-    counts its waves)."""
+    The plain version on CPU tensors (ops/kernels/constrained_kernel.py);
+    CUDA tensors raise, as no kernel places one group a lane.
+    `place_lanes.waves` and `place_lanes.flag_reads` count the plain
+    version's waves and host reads."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
 
     return constrained_kernel.place_lanes(free, feas, req, want, limit_one,

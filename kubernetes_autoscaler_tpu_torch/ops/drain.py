@@ -23,8 +23,8 @@ and constrained groups re-place by waves (the reference's
 preparation, in plain torch; the sweep is the same drain kernel
 (`drain_kernel.sweep` with `topo`): on the card one launch, each
 candidate's waves inside its CTA, reading nothing back to the host; on the
-CPU its plain version, whose constrained slots re-place through
-ops/constrained.place_lanes.
+CPU its plain version, whose constrained slots re-place through the plain
+wave placer (constrained_kernel.place_lanes_plain).
 
 A node with more than `max_groups_per_node` distinct shapes is reported
 undrainable (its overflow pods count in n_failed). The chunk size changes

@@ -16,7 +16,15 @@ the prefix sums, whose fits sum past BIG and past 2^31), negative free
 capacity, lanes inactive from the start (`active` false, want 0, not
 constrained), drain lanes of different groups, zone ids every lane shares beside a
 validity row per lane, option lanes with a zone a lane, and a zone spread
-the MAX_WAVES cap cuts short.
+the MAX_WAVES cap cuts short. For the kernel's thread-block clusters: N
+= 1,000 (a multiple of no slice) with zones whose nodes span two CTAs'
+slices, limit_one beside zone caps, and groups whose count is 0 or
+negative.
+
+The kernel has no mode that places one group a lane (`place_lanes` runs on
+the CPU only): `as_pack` turns a "place" case into one `pack_lanes` call
+over the same lanes, which the card tests and `chip_smoke.py` hold to the
+plain version.
 """
 
 from __future__ import annotations
@@ -64,6 +72,37 @@ class Case:
             return tuple(place(*self.args, active=self.active))
         res = pack(*self.args)
         return res.free_after, res.placed, res.scheduled
+
+
+def as_pack(case: Case) -> Case:
+    """A "place" case as one pack_lanes call of its B lanes: group g is
+    lane g's group (its request, count, limit_one and constraints), and
+    lane b's mask admits only its own group b, so each lane places its own
+    group alone (by waves where it is constrained, by the one-shot first
+    fit where not); an inactive lane's group has count 0. A "pack" case is
+    returned as it is."""
+    if case.kind == "pack":
+        return case
+    free, feas, req, want, limit, cons, z = case.args
+    b, n = want.shape[0], feas.shape[-1]
+    r = free.shape[-1]
+    count = want.clone()
+    if case.active is not None:
+        count[~case.active] = 0
+    eye = torch.eye(b, dtype=torch.bool)
+    mask = eye[:, :, None] & feas.expand(b, n)[None, :, :]
+    fields = {}
+    for k, v in vars(cons).items():
+        if k in ("zone_cl", "zone_valid"):
+            fields[k] = v
+        else:
+            v = v.expand((b,) + tuple(v.shape[1:]))
+            fields[k] = v[None].expand((b,) + tuple(v.shape)).contiguous()
+    return Case("pack", (
+        free.expand(b, n, r).contiguous(), mask.contiguous(),
+        req.expand(b, r).contiguous(), count,
+        torch.arange(b, dtype=torch.int32), limit.expand(b).contiguous(),
+        GroupConstraints(**fields), z))
 
 
 def _t(x, dtype):
@@ -137,12 +176,13 @@ def place_case(seed, b, n, r=4, want_max=40, kinds=None, shared_zone=False,
         cons, Z), active)
 
 
-def pack_case(seed, b, g, n, r=4, count_max=60, kinds=None, lane_zone=False):
+def pack_case(seed, b, g, n, r=4, count_max=60, kinds=None, lane_zone=False,
+              zone_rows=None):
     """B lanes of the whole group loop: free [B, N, R], mask [B, G, N],
     shared req/count/order/limit_one, constraints [B, G, ...]; with
     `lane_zone` each lane's nodes all carry that lane's zone (the options:
     one template a lane, its bins in the template's zone, a keyless
-    template too)."""
+    template too); `zone_rows` = (zone_cl, zone_valid) [L, N] overrides."""
     rng = np.random.default_rng(seed)
     free = rng.integers(-2, 40, (b, n, r))
     req = rng.integers(0, 6, (g, r))
@@ -150,7 +190,6 @@ def pack_case(seed, b, g, n, r=4, count_max=60, kinds=None, lane_zone=False):
     count = rng.integers(0, count_max, (g,))
     mask = rng.random((b, g, n)) < 0.8
     limit = rng.random((g,)) < 0.2
-    zone_rows = None
     if lane_zone:
         lz = rng.integers(0, 4, (b,))
         zone_rows = (np.repeat(lz[:, None], n, 1),
@@ -198,7 +237,7 @@ def _max_waves():
 
 def _inactive():
     """Lanes inactive from the start: `active` false, want 0, and lanes
-    whose group is not constrained (in kPlace they run waves all the
+    whose group is not constrained (place_lanes runs waves for them all the
     same)."""
     c = place_case(13, 8, 50, active_p=0.5)
     c.args[3][1::3] = 0
@@ -218,6 +257,34 @@ def _bootstrap(limit):
         c.args[1][3, :17] = False                 # the seed is node 17
         return c
     return build
+
+
+def _spanning_zones():
+    """N = 1,000 nodes (a slice of 250 at a cluster of 4, of 63 at 16: a
+    multiple of neither), zones in runs of 300 nodes, so a zone's nodes
+    span two or more CTAs' slices, every kind of group, keyless nodes."""
+    n = 1000
+    zcl = (np.arange(n) // 300)[None] % 4
+    zval = (np.arange(n) % 37 != 0)[None]
+    return pack_case(45, 1, 12, n, r=4, count_max=400,
+                     zone_rows=(zcl, zval))
+
+
+def _limit_one_caps():
+    """limit_one beside zone caps: zone spreads at skew 1 and 2 and
+    anti-self 1-per-zone, every lane limit_one."""
+    return place_case(47, 6, 90, want_max=120,
+                      kinds={"s_kind": 2, "limit": True,
+                             "anti": [True, False, True, False, True, False]})
+
+
+def _count_zero():
+    """Groups whose count is 0 or negative beside live ones, constrained
+    and not: they place nothing and run no wave."""
+    c = pack_case(49, 2, 10, 80, count_max=40)
+    c.args[3][::3] = 0
+    c.args[3][1] = -5
+    return c
 
 
 CASES = {
@@ -253,4 +320,7 @@ CASES = {
     "max_waves": _max_waves,
     "filter_pack": lambda: pack_case(41, 1, 24, 150),
     "mixed_pack": lambda: pack_case(43, 3, 12, 70, count_max=300),
+    "spanning_zones": _spanning_zones,
+    "limit_one_caps": _limit_one_caps,
+    "count_zero": _count_zero,
 }

@@ -1,27 +1,30 @@
-"""The constrained wave placer: the wrappers of the CUDA kernel and their
+"""The constrained wave placer: the wrapper of the CUDA kernel and the
 plain PyTorch versions.
 
 Replaces the reference package's `ops/constrained.py`
-`place_group_constrained` (a `lax.while_loop` of placement waves, under
-vmap over options and drain lanes) and `pack_groups_constrained` (the
-`lax.scan` over groups, `lax.cond(is_con[g], slow, fast)`); neither is a
+`pack_groups_constrained` (the `lax.scan` over groups, `lax.cond(is_con[g],
+slow, fast)`) and `place_group_constrained` (its slow branch, a
+`lax.while_loop` of placement waves), under vmap over options; neither is a
 Pallas kernel. The kernel is `csrc/constrained.cu`; its header says what
-bounds it and how its design answers that (one CTA a lane runs every wave
-of the lane, no host read).
+bounds it and how its design answers that (one thread-block cluster a lane
+runs every wave of the lane, no host read).
 
 Two entry points:
-- `place_lanes`: B lanes, each one group onto its own node row, by waves.
-  `active` (bool[B]) leaves a lane out: its outputs are what `out` holds
-  (the input free capacity and no placement when `out` is not given).
 - `pack_lanes`: B lanes, each the whole group loop of `order` onto its node
   row: constrained groups by waves, the others by the one-shot first fit.
+  CPU tensors go through the plain version, CUDA tensors through the
+  kernel.
+- `place_lanes`: B lanes, each one group onto its own node row, by waves.
+  `active` (bool[B]) leaves a lane out: its outputs are what `out` holds
+  (the input free capacity and no placement when `out` is not given). It
+  has no kernel: the drain sweep's plain version runs its waves through
+  `place_lanes_plain` on either device, and the card runs the drain's
+  waves inside the drain kernel (csrc/drain.cu); on CUDA tensors it raises.
 
 Every lane input is [L, ...] with L = 1 (a row every lane shares, passed
 with lane stride 0, never copied per lane) or B, its trailing dims
-contiguous. The device of the tensors decides: CPU tensors go through the
-plain versions, CUDA tensors through the kernel, and anything the kernel
-does not take raises, on either device. There is no fallback from the
-kernel to the plain version.
+contiguous. Anything the kernel does not take raises, on either device.
+There is no fallback from the kernel to the plain version.
 
 The plain versions run a Python loop of waves over the lanes at once, a
 finished lane frozen with `torch.where` as `while_loop` under `vmap` does,
@@ -50,14 +53,13 @@ SOURCE = "constrained.cu"
 I32 = torch.int32
 BOOL = torch.bool
 
-# csrc/constrained.cu's Field and Mode enums, in order
+# csrc/constrained.cu's Field enum, in order
 FIELDS = ("free_in", "free_out", "placed", "feas", "req", "want", "limit",
-          "active", "order", "s_kind", "s_skew", "s_self", "s_cnt_node",
+          "order", "s_kind", "s_skew", "s_self", "s_cnt_node",
           "s_elig", "a_kind", "a_self", "a_any", "a_ok_node",
           "anti_self_zone", "cnt_zone_base", "elig_zone_base",
-          "min_host_base", "zone_cl", "zone_valid", "perm", "skey",
+          "min_host_base", "zone_cl", "zone_valid",
           "scratch", "waves")
-PLACE, PACK = 0, 1
 
 # the constraint fields: (dtype, trailing dims after the [L, G] lead as a
 # function of (n, z))
@@ -327,12 +329,12 @@ def _lib():
 
     lib = load(SOURCE)
     lib.ka_constrained.argtypes = (
-        [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7
-        + [ctypes.c_void_p])
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.ka_constrained.restype = ctypes.c_int
-    lib.ka_constrained_plane.argtypes = [ctypes.c_int] * 3
-    lib.ka_constrained_plane.restype = ctypes.c_int
+    lib.ka_constrained_config.argtypes = ([ctypes.c_int] * 6
+                                          + [ctypes.POINTER(ctypes.c_int)])
+    lib.ka_constrained_config.restype = ctypes.c_int
     return lib
 
 
@@ -350,45 +352,49 @@ def wave_counter(device) -> torch.Tensor:
     return _WAVES[dev]
 
 
-def plane_in_shared_memory(n: int, r: int, z: int) -> bool:
-    """Whether a lane of N nodes, R resources and Z zones keeps its plane in
-    shared memory on the current card (else in device memory); raises if
-    neither fits."""
-    where = _lib().ka_constrained_plane(n, r, z)
-    if where < 0:
-        raise RuntimeError(f"constrained kernel: no launch fits N={n} R={r} "
-                           f"Z={z}")
-    return where == 1
+def config(b: int, n: int, r: int, z: int, cluster: int = 0,
+           placement: int = 0) -> dict:
+    """What a launch of B lanes at (N, R, Z) uses on the current card: the
+    cluster size, the threads of a CTA, its dynamic shared memory, whether
+    the slices are in shared memory, the nodes of a CTA's slice. `cluster`
+    0 lets the kernel choose (1 to 16 forces it); `placement` 0 chooses, 1
+    forces device memory, 2 shared memory. Raises if no launch fits."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().ka_constrained_config(b, n, r, z, cluster, placement, out)
+    if rc != 0:
+        raise RuntimeError(f"constrained kernel: no launch fits B={b} N={n} "
+                           f"R={r} Z={z} cluster={cluster} placement="
+                           f"{placement}: CUDA error {rc}")
+    return {"cluster": out[0], "threads": out[1], "smem": out[2],
+            "smem_plane": bool(out[3]), "slice": out[4]}
 
 
-def launch(mode: int, b: int, g: int, n: int, r: int, z: int,
-           tensors: dict, strides: dict) -> None:
+def launch_choice(b: int, n: int, r: int, z: int) -> tuple[int, int]:
+    """(cluster, placement) a launch asks `config` for: (0, 0), the
+    kernel's choice. Tests replace it to force a cluster size or where the
+    slices live."""
+    return 0, 0
+
+
+def launch(b: int, g: int, n: int, r: int, z: int, tensors: dict,
+           strides: dict) -> None:
     """One launch on checked CUDA tensors. `tensors` maps FIELDS names to
-    tensors (the inputs, `free_out`, `placed`; `active` and `order` may be
-    absent); the zone-sorted permutation, the scratch row and the wave
-    counter are added here. Counted in `launches`."""
+    tensors (the inputs, `free_out`, `placed`); the scratch rows and the
+    wave counter are added here (each CTA sorts its nodes by zone itself).
+    Counted in `launches`."""
     dev = tensors["free_out"].device
-    smem = plane_in_shared_memory(n, r, z)
-    # one zone order for every lane when both zone rows are shared
-    shared = strides["zone_cl"] == 0 and strides["zone_valid"] == 0
-    zcl, zval = tensors["zone_cl"], tensors["zone_valid"]
-    if shared:
-        zcl, zval = zcl[:1], zval[:1]
-    key = torch.where(zval, zcl.clamp(0, z - 1), z)
-    perm = torch.argsort(key, dim=1, stable=True)
+    cfg = config(b, n, r, z, *launch_choice(b, n, r, z))
     t = dict(tensors)
-    t["perm"] = perm.to(I32)
-    t["skey"] = key.gather(1, perm).to(I32)
-    t["scratch"] = None if smem else torch.empty((b, n), dtype=I32,
-                                                 device=dev)
+    t["scratch"] = None if cfg["smem_plane"] else torch.empty(
+        (b, 4, n), dtype=I32, device=dev)
     t["waves"] = wave_counter(dev)
     ls = dict(strides)
-    ls["perm"] = ls["skey"] = 0 if shared else n
     ptrs = (ctypes.c_void_p * len(FIELDS))(*[
         t[f].data_ptr() if t.get(f) is not None else None for f in FIELDS])
     lane = (ctypes.c_longlong * len(FIELDS))(*[ls.get(f, 0) for f in FIELDS])
     rc = _lib().ka_constrained(
-        mode, ptrs, lane, b, g, n, r, z, _con.MAX_WAVES, int(smem),
+        ptrs, lane, b, g, n, r, z, _con.MAX_WAVES, cfg["cluster"],
+        2 if cfg["smem_plane"] else 1,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"constrained kernel launch failed: CUDA error {rc}")
@@ -411,40 +417,28 @@ def place_lanes(free: torch.Tensor,       # i32[B|1, N, R]
     """Wave-greedy placement of B lanes, each one constrained group onto
     its own node row; returns (free', place i32[B, N]). A lane with
     `active` false is left as `out` holds it (the input capacity and no
-    placement without `out`). CPU tensors take the plain version, CUDA
-    tensors the kernel; `out`, when given, is written in place."""
+    placement without `out`); `out`, when given, is written in place. The
+    contract is checked on either device; CPU tensors take the plain
+    version, and CUDA tensors raise: no kernel takes one group a lane."""
     b = want.shape[0]
     dev = want.device
     n, r = feas.shape[-1], free.shape[-1]
-    strides = {
-        "free_in": _lane("free", free, I32, b, (n, r), dev),
-        "feas": _lane("feas", feas, BOOL, b, (n,), dev),
-        "req": _lane("req", req, I32, b, (r,), dev),
-        "want": _lane("want", want, I32, b, (), dev, shared=False),
-        "limit": _lane("limit_one", limit_one, BOOL, b, (), dev),
-        **_cons_strides(cons, b, None, n, max_zones, dev)}
+    _lane("free", free, I32, b, (n, r), dev)
+    _lane("feas", feas, BOOL, b, (n,), dev)
+    _lane("req", req, I32, b, (r,), dev)
+    _lane("want", want, I32, b, (), dev, shared=False)
+    _lane("limit_one", limit_one, BOOL, b, (), dev)
+    _cons_strides(cons, b, None, n, max_zones, dev)
     if active is not None:
         _check("active", active, BOOL, (b,), dev)
     if out is not None:
         _check("free_out", out[0], I32, (b, n, r), dev)
         _check("place_out", out[1], I32, (b, n), dev)
-    if dev.type == "cpu":
-        return place_lanes_plain(free, feas, req, want, limit_one, cons,
-                                 max_zones, active=active, out=out)
-    if dev.type != "cuda":
-        raise ValueError(f"place_lanes: no kernel for {dev}")
-    if r < 1 or n < 1:
-        raise ValueError(f"place_lanes: N={n}, R={r} must be positive")
-    if out is None:
-        free_out = torch.empty((b, n, r), dtype=I32, device=dev)
-        free_out.copy_(free.expand(b, n, r))
-        out = (free_out, torch.zeros((b, n), dtype=I32, device=dev))
-    tensors = {"free_in": free, "free_out": out[0], "placed": out[1],
-               "feas": feas, "req": req, "want": want, "limit": limit_one,
-               "active": active, **vars(cons)}
-    with torch.cuda.device(dev):
-        launch(PLACE, b, 1, n, r, max_zones, tensors, strides)
-    return out
+    if dev.type != "cpu":
+        raise ValueError(f"place_lanes: no kernel for {dev} (pack_lanes and "
+                         f"the drain kernel run the card's waves)")
+    return place_lanes_plain(free, feas, req, want, limit_one, cons,
+                             max_zones, active=active, out=out)
 
 
 def pack_lanes(free: torch.Tensor,       # i32[B, N, R]
@@ -483,6 +477,6 @@ def pack_lanes(free: torch.Tensor,       # i32[B, N, R]
                "feas": mask, "req": req, "want": count, "limit": limit_one,
                "order": order, **vars(cons)}
     with torch.cuda.device(dev):
-        launch(PACK, b, g, n, r, max_zones, tensors, strides)
+        launch(b, g, n, r, max_zones, tensors, strides)
     return PackResult(free_after=free_after, placed=placed,
                       scheduled=placed.sum(dim=-1, dtype=I32))

@@ -16,7 +16,10 @@ unmovable or blocking. Each case pins the edge its name says: an empty
 node, blockers, more than K shapes on a node, a limit-one group, a
 zero-request group (fit BIG), negative free capacity on destinations, no
 allowed destination, a group spilling over many nodes, full and overfull
-windows, a candidate subset in reverse order.
+windows, a candidate subset in reverse order; for the kernel's fit plane
+(a u16 capped at MPN): groups that fit more than MPN pods on every node,
+limit_one beside that cap, and a candidate whose debit rows fall in every
+tile of 2,048 nodes ("debits_every_tile", N = 4,500).
 
 `world` builds a random world at any widths (the card tests and
 `chip_smoke.py` use it at the main path's shapes).
@@ -316,6 +319,61 @@ def wide() -> Case:
     return w.case()
 
 
+def over_mpn() -> Case:
+    """Every node has room for 1,000 pods of every group (past MPN = 16,
+    the fit plane's cap): each candidate's pods land on the first allowed
+    nodes, several a node."""
+    w = _world(13)
+    w.cap[:] = 1000
+    w.alloc[:] = 0
+    w.req[:] = 1
+    return w.case()
+
+
+def limit_one_cap() -> Case:
+    """Group 2 is self-anti-affine (one a node) and fits 500 a node (past
+    the cap) on every node: candidate 9 holds nine of its pods, spread one a
+    node."""
+    w = _world(14, load=0.2)
+    w.cap[:] = 500
+    w.alloc[:] = 0
+    w.anti[:] = False
+    w.anti[2] = True
+    w.ports[:] = 0
+    w.req[2] = [1, 0, 0, 0]
+    w.sel[2] = 0
+    _clear(w, 9)
+    _pods_on(w, 9, [2] * 9 + [4])
+    return w.case()
+
+
+def debits_every_tile() -> Case:
+    """N = 4,500: three tiles of 2,048 nodes. Groups 0 (a hostPort: one a
+    node) and 1 fit only nodes 100, 2,100 and 4,100, two pods each; four
+    candidates hold three pods of each. Group 0's slot debits a node in
+    every tile, and group 1's slot finds its room there, by each node's
+    free capacity less its debit row."""
+    n, p = 4500, 4600
+    w = _world(15, n=n, p=p, residents=(0, 1), load=0.5)
+    w.labels[:] = LABELS[1]
+    room = [100, 2100, 4100]
+    w.labels[room] = LABELS[0]
+    w.sel[[0, 1]] = LABELS[0]
+    w.req[[0, 1]] = [1, 0, 0, 0]
+    w.ports[:] = 0
+    w.ports[0] = 4000
+    w.anti[:] = False
+    w.alloc[room] = w.cap[room] - 2
+    w.node_ok[:, room] = True
+    w.dest[room] = True
+    cand = [7, 8, 3000, 4499]
+    for node in cand:
+        _clear(w, node)
+        _pods_on(w, node, [0] * 3 + [1] * 3)
+    w.cand = np.asarray(cand + [100], np.int32)
+    return w.case()
+
+
 CASES = {
     "mixed": mixed,
     "empty_node": empty_node,
@@ -329,6 +387,9 @@ CASES = {
     "full_window": full_window,
     "reverse_subset": reverse_subset,
     "wide": wide,
+    "over_mpn": over_mpn,
+    "limit_one_cap": limit_one_cap,
+    "debits_every_tile": debits_every_tile,
 }
 
 

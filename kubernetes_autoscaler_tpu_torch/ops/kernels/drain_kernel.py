@@ -23,7 +23,8 @@ candidate's own residents leave its zone's counts (the ghost node), the
 zone gate joins each slot's predicate row, and a constrained group's slot
 re-places by waves (the reference's `place_group_constrained`). On the
 card that is the same one launch, the waves inside the candidate's CTA;
-the plain version runs them through `ops/constrained.place_lanes`.
+the plain version runs them through `constrained_kernel.place_lanes_plain`
+on either device, so no kernel runs in it.
 
 The device of the tensors decides: CPU tensors go through `sweep_plain`,
 CUDA tensors through the kernel (one launch for all candidates, nothing
@@ -72,7 +73,7 @@ FIELDS = ("candidates", "starts", "pad_order", "node_idx", "group_ref", "valid",
           "zone_cl", "zone_valid", "s_kind", "s_skew", "s_self", "a_kind",
           "a_self", "a_any", "anti_self_zone", "spread_cnt", "aff_cnt",
           "anti_zone_cnt", "s_elig", "anti_zone", "aff_zone", "cnt_zone",
-          "elig_zone", "perm", "skey", "waves")
+          "elig_zone", "perm", "skey", "waves", "fit0")
 
 
 def default_chunk(c_total: int, n: int, r: int) -> int:
@@ -217,9 +218,12 @@ def sweep_plain(inp: SweepInputs, max_groups_per_node: int, explain: bool,
     [C, N, R] free plane (the cumulative-fit first fit), and the per-pod
     destinations by one `searchsorted` a slot. `topo` makes the re-placement
     topology-aware: each slot's zone gate joins the predicate row, and the
-    slot's constrained lanes re-place by waves (ops/constrained.place_lanes)
-    over the first fit's result in place."""
-    from kubernetes_autoscaler_tpu_torch.ops.constrained import place_lanes
+    slot's constrained lanes re-place by waves (the plain wave placer,
+    constrained_kernel.place_lanes_plain, on either device) over the first
+    fit's result in place."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.constrained_kernel import (
+        place_lanes_plain,
+    )
 
     n = inp.free.shape[0]
     g_total = inp.req.shape[0]
@@ -271,7 +275,7 @@ def sweep_plain(inp: SweepInputs, max_groups_per_node: int, explain: bool,
         dest = dest_ok[None, :] & (node_ids[None, :] != c[:, None])    # [C, N]
         if topo is not None:
             # the (candidate, slot) lanes with a wave loop to run, on the
-            # device: place_lanes' `active`
+            # device: place_lanes_plain's `active`
             slow = (topo.is_con[gidx] & (cnt_k > 0)).T.contiguous()    # [K, C]
             real = torch.arange(c0, c0 + cn, device=dev) < c_total
             sweep_plain.active_lanes += int((slow & real).sum())
@@ -297,10 +301,11 @@ def sweep_plain(inp: SweepInputs, max_groups_per_node: int, explain: bool,
             if topo is not None:
                 # the lanes whose group is constrained and has pods re-place
                 # by waves, over the first fit's result in place
-                place_lanes(free_c, feas_row, reqg, want.contiguous(),
-                            limit_g[gi], lane_constraints(topo, gi, c.long()),
-                            topo.max_zones, active=slow[j],
-                            out=(new_free, place))
+                place_lanes_plain(free_c, feas_row, reqg, want.contiguous(),
+                                  limit_g[gi],
+                                  lane_constraints(topo, gi, c.long()),
+                                  topo.max_zones, active=slow[j],
+                                  out=(new_free, place))
             free_c = new_free
             placed_k.append(place.sum(dim=1))
             cumplace_k.append(torch.cumsum(place, dim=1))
@@ -493,8 +498,11 @@ def zone_order(topo: TopoInputs) -> tuple[torch.Tensor, torch.Tensor]:
 def launch(inp: SweepInputs, max_groups_per_node: int, explain: bool,
            outs: tuple, topo: TopoInputs | None = None) -> None:
     """One launch on checked CUDA tensors, writing `outs` (the sweep's
-    outputs, allocated by the caller). Counted in `launch.launches`."""
+    outputs, allocated by the caller): the kernel's C entry runs the fit
+    plane's pre-pass into a scratch allocated here, then the sweep. Counted
+    in `launch.launches`."""
     n, r = inp.free.shape
+    g = inp.req.shape[0]
     dev = inp.free.device
     z = 0 if topo is None else topo.max_zones
     threads(n, r, inp.mpn, max_groups_per_node, z)
@@ -505,6 +513,9 @@ def launch(inp: SweepInputs, max_groups_per_node: int, explain: bool,
         (t["out0"], t["out1"], t["out2"], t["out3"], t["dest_node"],
          t["pod_slot"]) = outs
     t["nodes"] = node_counter(dev)
+    # u16 [G, N rounded up to 8]: the candidate-independent fit plane
+    t["fit0"] = torch.empty((g, (n + 7) // 8 * 8), dtype=torch.int16,
+                            device=dev) if g else None
     if topo is not None:
         t.update(vars(topo))
         t["perm"], t["skey"] = zone_order(topo)
@@ -512,7 +523,7 @@ def launch(inp: SweepInputs, max_groups_per_node: int, explain: bool,
     ptrs = (ctypes.c_void_p * len(FIELDS))(*[
         t[f].data_ptr() if t.get(f) is not None else None for f in FIELDS])
     rc = _lib().ka_drain(
-        ptrs, inp.candidates.shape[0], n, r, inp.req.shape[0],
+        ptrs, inp.candidates.shape[0], n, r, g,
         inp.node_idx.shape[0], inp.mpn, max_groups_per_node, z, MAX_WAVES,
         int(explain), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -23,7 +23,9 @@ group itself (anti_self_zone), host and zone affinity with the bootstrap
 seed and to residents, a candidate whose removal frees its own zone (the
 ghost node), limit_one beside a spread, a slot that the MAX_WAVES cap cuts
 short, a constrained group past K, candidates with constrained and
-unconstrained slots, negative free capacity, and a mix of every kind.
+unconstrained slots, negative free capacity, a mix of every kind, and
+spreads and a limit_one group whose fit passes MPN on every node (the drain
+kernel's fit plane caps it there).
 
 `world` builds such a world at any widths (the card tests and
 `chip_smoke.py` use it where every lane is active).
@@ -356,6 +358,26 @@ def every_kind() -> Case:
     return t.case()
 
 
+def over_mpn_spread() -> Case:
+    """Every node has room for 1,000 pods of every group, past MPN = 160:
+    group 2 spreads over hostnames, group 3 over zones (skew 2) and group 1
+    (a hostPort: one a node) over zones; candidates 4, 5 and 20 hold
+    twenty pods of each."""
+    t = _topo(112)
+    t.w.cap[:] = 1000
+    t.w.alloc[:] = 0
+    _spread(t, 2, 1)
+    _spread(t, 3, 2, skew=2)
+    _spread(t, 1, 2)
+    t.w.ports[1] = 4001
+    for g in (1, 2, 3):
+        _small(t, g)
+    for node in (4, 5, 20):
+        _clear(t.w, node)
+        _pods_on(t.w, node, [1] * 20 + [2] * 20 + [3] * 20)
+    return t.case()
+
+
 CASES = {
     "host_spread": host_spread,
     "zone_spread_self": zone_spread_self,
@@ -368,6 +390,7 @@ CASES = {
     "mixed_slots": mixed_slots,
     "negative_free": negative_free,
     "every_kind": every_kind,
+    "over_mpn_spread": over_mpn_spread,
 }
 
 

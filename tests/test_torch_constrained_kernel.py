@@ -214,3 +214,53 @@ def test_pack_lanes_constrained_group_with_no_pods_places_nothing():
     con = cons.is_constrained()
     neg = (count < 0)[None, :] & con
     assert bool((got[1].sum(-1)[neg] == 0).all())
+
+
+def test_cluster_cases_reach_their_edges():
+    """The cases for the kernel's thread-block clusters pin their edges:
+    N = 1,000 is no multiple of a cluster of 16's slice (63 nodes), and a
+    zone's nodes cross the slices' edges at clusters of 2, 4 and 16; every
+    lane of
+    "limit_one_caps" is limit_one beside a zone cap and places at most one
+    pod a node; "count_zero"'s groups of count 0 or below place nothing."""
+    n = 1000
+    case = con_cases.CASES["spanning_zones"]()
+    zcl = case.args[6].zone_cl[0]
+    assert n % 63
+    for ns in (500, 250, 63):
+        edges = torch.arange(ns, n, ns)
+        assert bool((zcl[edges] == zcl[edges - 1]).any())
+    got = case.run(constrained_kernel.place_lanes,
+                   constrained_kernel.pack_lanes)
+    assert_equal(reference(case), got)
+    assert int(got[1].sum()) > 0
+    caps = con_cases.CASES["limit_one_caps"]()
+    assert bool(caps.args[4].all()) and bool((caps.args[5].s_kind == 2).all())
+    place = caps.run(constrained_kernel.place_lanes,
+                     constrained_kernel.pack_lanes)[1]
+    assert int(place.max()) == 1 and int(place.sum()) > 0
+    zero = con_cases.CASES["count_zero"]()
+    count = zero.args[3]
+    got = zero.run(constrained_kernel.place_lanes,
+                   constrained_kernel.pack_lanes)
+    assert bool((got[1].sum(-1)[:, count <= 0] == 0).all())
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("name", [k for k, v in con_cases.CASES.items()
+                                  if v().kind == "place"])
+def test_as_pack_places_each_lane_alone(name):
+    """`con_cases.as_pack` (how the card runs a "place" case through the
+    pack kernel) gives each constrained lane's group the placement
+    place_lanes gives that lane; both are the JAX package's."""
+    case = con_cases.CASES[name]()
+    want = case.run(constrained_kernel.place_lanes,
+                    constrained_kernel.pack_lanes)
+    pack = con_cases.as_pack(case)
+    got = pack.run(constrained_kernel.place_lanes,
+                   constrained_kernel.pack_lanes)
+    assert_equal(reference(pack), got)
+    con = case.args[5].is_constrained().expand(want[1].shape[0])
+    for b in range(want[1].shape[0]):
+        if bool(con[b]):
+            assert torch.equal(got[1][b, b], want[1][b]), b

@@ -130,6 +130,36 @@ def test_cases_reach_their_edges():
     assert (why["reason"] == drain.DRAIN_NO_PLACE_FOR_GROUP).any()
 
 
+def test_fit_plane_cases_reach_their_edges():
+    """The cases for the kernel's fit plane (a u16 capped at MPN) pin their
+    edges in the reference's own results: fits past MPN on every node (a
+    node takes several of a candidate's pods), limit_one beside that cap
+    (one a node), and a candidate whose debit rows fall in every tile of
+    2,048 nodes, the later slot placing there."""
+    def run(name):
+        case = drain_cases.CASES[name]()
+        rem, _ = _reference(name)
+        return case, {k: np.asarray(v) for k, v in vars(rem).items()}
+
+    case, rem = run("over_mpn")
+    free = (case.nodes.cap - case.nodes.alloc).numpy()
+    assert (free // case.specs.req.numpy().max() > drain_cases.MPN).all()
+    dests = rem["dest_node"][rem["dest_node"] >= 0]
+    assert dests.size and np.bincount(dests).max() > 1
+    assert rem["drainable"].any()
+    case, rem = run("limit_one_cap")
+    pods = rem["pod_slot"][9]
+    on_2 = (pods >= 0) & (case.scheduled.group_ref.numpy()[pods] == 2)
+    d = rem["dest_node"][9][on_2]
+    assert d.size == 9 and (d >= 0).all() and len(set(d.tolist())) == 9
+    case, rem = run("debits_every_tile")
+    tiles = 2048
+    for k in range(4):                    # the four candidates holding pods
+        d = rem["dest_node"][k]
+        assert sorted(set((d[d >= 0] // tiles).tolist())) == [0, 1, 2]
+        assert rem["drainable"][k] and rem["n_moved"][k] == 6
+
+
 def test_no_candidates_match_reference():
     case = drain_cases.CASES["mixed"]()
     none = torch.zeros((0,), dtype=torch.int32)

@@ -332,7 +332,9 @@ def test_histogram_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def _con_outputs(case, device):
-    """(kernel outputs on the card, plain outputs on the CPU) of a case."""
+    """(kernel outputs on the card, plain outputs on the CPU) of a case, a
+    "place" case as the pack_lanes call of its lanes (con_cases.as_pack)."""
+    case = con_cases.as_pack(case)
     want = case.run(constrained_kernel.place_lanes,
                     constrained_kernel.pack_lanes)
     before = constrained_kernel.launch.launches
@@ -353,32 +355,44 @@ def _assert_con_equal(got, want):
 @pytest.mark.parametrize("plane", ["fit", "device"])
 @pytest.mark.parametrize("name", list(con_cases.CASES))
 def test_constrained_kernel_cases(cuda, name, plane, monkeypatch):
-    """Every case, with the plane where it fits (shared memory at these
+    """Every case, with the slices where they fit (shared memory at these
     widths) and forced into device memory."""
     if plane == "device":
-        monkeypatch.setattr(constrained_kernel, "plane_in_shared_memory",
-                            lambda n, r, z: False)
+        monkeypatch.setattr(constrained_kernel, "launch_choice",
+                            lambda b, n, r, z: (0, 1))
     _assert_con_equal(*_con_outputs(con_cases.CASES[name](), cuda))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["filter", "options", "drain", "global"])
+@pytest.mark.parametrize("cluster", [2, 16])
+@pytest.mark.parametrize("name", list(con_cases.CASES))
+def test_constrained_kernel_cluster_sizes(cuda, name, cluster, monkeypatch):
+    """Every case on a cluster of 2 and of 16 CTAs a lane (at these widths
+    a slice of a few nodes, some empty): the exchanges, the zone carry
+    across CTAs and the slice edges."""
+    monkeypatch.setattr(constrained_kernel, "launch_choice",
+                        lambda b, n, r, z: (cluster, 0))
+    _assert_con_equal(*_con_outputs(con_cases.CASES[name](), cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["filter", "options", "global"])
 def test_constrained_kernel_main_path_shapes(cuda, shape):
-    """B = 1 at the filter's N, B = 24 at the options' N, a drain chunk's
-    B, and an N past the shared-memory plane (device-memory plane)."""
+    """B = 1 at the filter's N (a cluster of 16), B = 24 at the options' N
+    (one CTA a lane), and N = 6,144 (past one CTA's shared memory; its
+    slices fit)."""
     case = {
         "filter": lambda: con_cases.pack_case(1, 1, 64, 5120, r=8,
                                               count_max=2000),
         "options": lambda: con_cases.pack_case(2, 24, 64, 1024, r=8,
                                                lane_zone=True),
-        "drain": lambda: con_cases.place_case(3, 1280, 256, r=8,
-                                              shared_zone=True, active_p=0.3),
         "global": lambda: con_cases.pack_case(4, 2, 8, 6144, r=8,
                                               count_max=3000),
     }[shape]()
-    n, r = case.args[0].shape[-2:]
-    assert constrained_kernel.plane_in_shared_memory(n, r, con_cases.Z) \
-        == (shape != "global")
+    b, n, r = case.args[0].shape
+    cfg = constrained_kernel.config(b, n, r, con_cases.Z)
+    assert cfg["smem_plane"]
+    assert cfg["cluster"] == {"filter": 16, "options": 1, "global": 16}[shape]
     _assert_con_equal(*_con_outputs(case, cuda))
 
 
@@ -388,7 +402,7 @@ def test_constrained_kernel_counts_its_waves(cuda):
     exactly the cap; a call under sync debug mode "error" reads nothing."""
     counter = constrained_kernel.wave_counter(cuda)
     counter.zero_()
-    case = con_cases.CASES["max_waves"]().to(cuda)
+    case = con_cases.as_pack(con_cases.CASES["max_waves"]()).to(cuda)
     torch.cuda.set_sync_debug_mode("error")
     try:
         case.run(constrained_kernel.place_lanes, constrained_kernel.pack_lanes)
@@ -412,6 +426,8 @@ def test_constrained_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         f(free.transpose(1, 2).contiguous().transpose(1, 2), feas, req, want,
           limit, cons, z)
+    with pytest.raises(ValueError):   # no kernel places one group a lane
+        f(free, feas, req, want, limit, cons, z)
     pack = con_cases.CASES["mixed_pack"]().to(cuda)
     free, mask, req, count, order, limit, cons, z = pack.args
     g = constrained_kernel.pack_lanes
