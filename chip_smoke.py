@@ -12,7 +12,10 @@ its own failure:
   3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu, the VPA scatter
                 histogram.cu, the wave placer constrained.cu, the drain sweep
                 drain.cu) against its plain PyTorch version on the card,
-                byte for byte, on seeded cases
+                byte for byte, on seeded cases (the wave placer's "place"
+                cases through its place entry, one launch and no host read
+                each, and as one pack; place_group_constrained at N=5,120);
+                the scatter's times on a skewed batch
   4. main       `run_once_fused` on the bench world (5,000 nodes, 50,000
                 pending pods in 25 groups, 40,000 residents, 20 node groups):
                 step and phase times, launches per step (K1 2, the drain
@@ -152,7 +155,9 @@ its own failure:
                 workload's usage (a memory target with OOMs within the OOM
                 bump and one bucket of every higher level's), the checkpoint round trip byte-equal, the
                 scatter kernel byte-equal to its plain version on the path's
-                inputs (and its times there), 6 fetches a step
+                inputs (and its times there: as launched, every pass, the
+                radix passes alone, index_add_), 2 x (1 + steps) scatter
+                calls, 6 fetches a step
  21. vpa-cpu-card  the same script on the CPU: the banks byte-equal after
                 the history and every step, every recommendation equal, the
                 updater's decisions equal, each side's checkpoint loads on
@@ -2527,7 +2532,9 @@ def kinds_objects(n_nodes):
 def wave_counts():
     """(waves, flag reads) of the wave placer's plain version (the CPU
     route; both stay 0 on the card)."""
-    from kubernetes_autoscaler_tpu_torch.ops.constrained import place_lanes
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.constrained_kernel import (
+        place_lanes,
+    )
 
     return place_lanes.waves, place_lanes.flag_reads
 
@@ -2660,6 +2667,42 @@ def check_con(name, got, want) -> int:
             raise AssertionError(f"{name}: output {k} differs from the plain "
                                  f"version")
     log(f"[kernels] constrained wave placer == plain: {name}")
+    return err
+
+
+def check_place_group() -> int:
+    """`ops/constrained.place_group_constrained` at [constrained]'s width
+    (con_cases.group_case: N = 5,120, R = 8, one zone-spread group) on the
+    card: one launch of the place entry, no read to the host, byte-equal
+    to the plain version on the CPU. Returns the max abs difference."""
+    from kubernetes_autoscaler_tpu_torch.ops import constrained
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import con_cases
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+        constrained_kernel as ck,
+    )
+
+    args = con_cases.group_case()
+    want = constrained.place_group_constrained(*args)
+    dev = [a.to(DEVICE) if isinstance(a, torch.Tensor) else a for a in args]
+    dev[5] = constrained.GroupConstraints(
+        **{k: v.to(DEVICE) for k, v in vars(args[5]).items()})
+    before = ck.launch.launches
+    torch.cuda.synchronize()
+    with no_host_reads():
+        got = constrained.place_group_constrained(*dev)
+    torch.cuda.synchronize()
+    if ck.launch.launches != before + 1:
+        raise AssertionError("place_group_constrained: expected one launch")
+    err = check_con("place_group_constrained N=5120 R=8, a zone spread",
+                    [g.cpu() for g in got], want)
+
+    def place():
+        constrained.place_group_constrained(*dev)
+
+    log(f"[kernels] constrained wave placer place_group_constrained (the "
+        f"place entry, B=1 N=5120 R=8, {constrained.MAX_WAVES} waves): "
+        f"{cuda_ms(place, REPS, hold=True)} ms device time, "
+        f"{cuda_ms(place, REPS)} ms as launched from Python")
     return err
 
 
@@ -4277,22 +4320,26 @@ def check_hist(name, args, kernel, plain) -> float:
 
 def hist_times(args, kernel, plain) -> dict:
     """The scatter's times on `args`: the wrapper as launched from Python
-    (the stable sort and the launch), the kernel's device time with the
-    order made beforehand, the sort's, the plain version's on the CPU (host
-    clock), and the library call on the card: `index_add_` on the bins and
-    on the totals, atomic, whose order of summation is not fixed."""
+    (its checks, the workspace and the one C call), the device time of
+    every pass (the stream held while the host enqueues), the ordering
+    passes' alone (the entry's `order_only`), the plain version's on the
+    CPU (host clock), and the library call on the card: `index_add_` on
+    the bins and on the totals, atomic, whose order of summation is not
+    fixed."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import histogram_kernel
 
     weights, total, agg, bucket, w = [a.to(DEVICE).clone() for a in args]
-    sorted_agg, order = torch.sort(agg, stable=True)
     flat = agg.long() * weights.shape[1] + bucket.long()
     agg_l = agg.long()
-    t = {"launch": cuda_ms(lambda: kernel(weights, total, agg, bucket, w),
-                           REPS),
-         "kernel": cuda_ms(lambda: histogram_kernel.launch(
-             sorted_agg, order, bucket, w, weights, total), REPS, hold=True),
-         "sort": cuda_ms(lambda: torch.sort(agg, stable=True), REPS,
-                         hold=True),
+
+    def scatter():
+        kernel(weights, total, agg, bucket, w)
+
+    t = {"launch": cuda_ms(scatter, REPS),
+         "device": cuda_ms(scatter, REPS, hold=True),
+         "order": cuda_ms(lambda: histogram_kernel.launch(
+             weights, total, agg, bucket, w, order_only=True), REPS,
+             hold=True),
          "library": cuda_ms(lambda: (weights.view(-1).index_add_(0, flat, w),
                                      total.index_add_(0, agg_l, w)), REPS)}
     cpu = [a.cpu().clone() for a in args]
@@ -4304,6 +4351,15 @@ def hist_times(args, kernel, plain) -> dict:
     t["plain"] = statistics.median(plain_ms)
     t["bound"], t["bound_by"] = hist_bound(args)
     return t
+
+
+def hist_line(name, args, t) -> str:
+    return (f"[kernels] scatter_add_ordered {name} A={args[0].shape[0]} "
+            f"n={args[2].numel()}: {t['launch']} ms as launched from Python, "
+            f"{t['device']} ms of device time (every pass), of which the "
+            f"ordering passes {t['order']} ms; plain (CPU index_add_) "
+            f"{t['plain']} ms, library (atomic index_add_ on the card) "
+            f"{t['library']} ms, bound {t['bound']} ms ({t['bound_by']})")
 
 
 def plain_route_probe(args) -> str:
@@ -4425,23 +4481,21 @@ def vpa_phase(card, kernel, plain):
         log(f"[vpa] scatter_add_ordered on the {name} inputs under "
             f"torch.cuda sync debug mode 'error': no host read")
         t = hist_times(args, kernel, plain)
-        log(f"[kernels] scatter_add_ordered {name} A={args[0].shape[0]} "
-            f"n={args[2].numel()}: kernel {t['kernel']} ms (device time; "
-            f"wrapper {t['launch']} ms as launched from Python, stable sort "
-            f"{t['sort']} ms of device time), plain (CPU index_add_) "
-            f"{t['plain']} ms, library (atomic index_add_ on the card) "
-            f"{t['library']} ms, bound {t['bound']} ms ({t['bound_by']})")
+        log(hist_line(name, args, t))
         entry[name] = t
     log(f"[kernels] plain routes on the card at the history's width: "
         f"{plain_route_probe(capture[0])}")
     del capture
-    t = entry[names[1]]
-    fields = {"ms": t["launch"], "device_ms": t["kernel"], "sort_ms": t["sort"],
+    t, h = entry[names[1]], entry[names[0]]
+    fields = {"ms": t["launch"], "device_ms": t["device"],
+              "order_ms": t["order"], "order_share": t["order"] / t["device"],
               "plain_ms": t["plain"], "bound_ms": t["bound"],
               "bound_by": t["bound_by"], "library_ms": t["library"],
-              "history_ms": entry[names[0]]["launch"],
-              "history_device_ms": entry[names[0]]["kernel"],
-              "history_bound_ms": entry[names[0]]["bound"]}
+              "history_ms": h["launch"], "history_device_ms": h["device"],
+              "history_order_ms": h["order"],
+              "history_order_share": h["order"] / h["device"],
+              "history_library_ms": h["library"],
+              "history_bound_ms": h["bound"]}
     log(f"[vpa] phase took {time.perf_counter() - t_phase:.1f} s")
     run["script"] = script
     return run, launches, fields, err
@@ -4823,22 +4877,42 @@ def main() -> int:
             k3_err = max(k3_err, check_hist(
                 f"out of bank (row {row}, bucket {bucket}, n {n})",
                 hist_cases.out_of_bank_case(row, bucket, n), k3, k3_plain))
+    # a skewed batch (90 % of the samples in one row): a reported time
+    skew_args = hist_cases.CASES["skewed"]()
+    k3_skew = hist_times(skew_args, k3, k3_plain)
+    log(hist_line("skewed case", skew_args, k3_skew))
     ck = constrained_kernel
     con_err = 0
     choice = ck.launch_choice
     try:
-        # each case (a "place" case as the pack_lanes call of its lanes) at
-        # the kernel's own cluster size and on a cluster of 16
+        # each case at the kernel's own cluster size and on a cluster of 16:
+        # a "place" case through place_lanes (the place entry) and as the
+        # pack_lanes call of its lanes (the pack entry); one launch each,
+        # no read to the host
         for cluster in (0, 16):
             ck.launch_choice = lambda b, n, r, z, cluster=cluster: (cluster, 0)
-            for name, case in con_cases.CASES.items():
-                case = con_cases.as_pack(case()).to(DEVICE)
-                con_err = max(con_err, check_con(
-                    f"case {name}, cluster {cluster or 'chosen'}",
-                    case.run(ck.place_lanes, ck.pack_lanes),
-                    case.run(ck.place_lanes_plain, ck.pack_lanes_plain)))
+            for name, build_case in con_cases.CASES.items():
+                cpu_case = build_case()
+                runs = {"": cpu_case}
+                if cpu_case.kind == "place":
+                    runs[" as one pack"] = con_cases.as_pack(cpu_case)
+                for tag, case in runs.items():
+                    case = case.to(DEVICE)
+                    before = ck.launch.launches
+                    with no_host_reads():
+                        got = case.run(ck.place_lanes, ck.pack_lanes)
+                    torch.cuda.synchronize()
+                    if ck.launch.launches != before + 1:
+                        raise AssertionError(f"case {name}{tag}: "
+                                             f"{ck.launch.launches - before} "
+                                             f"launches, expected 1")
+                    con_err = max(con_err, check_con(
+                        f"case {name}{tag}, cluster {cluster or 'chosen'}",
+                        got, case.run(ck.place_lanes_plain,
+                                      ck.pack_lanes_plain)))
     finally:
         ck.launch_choice = choice
+    con_err = max(con_err, check_place_group())
     drain_err = 0
     for name, case in drain_cases.CASES.items():
         case = case().to(DEVICE)
@@ -4957,13 +5031,21 @@ def main() -> int:
         "launches": k3_launches,
         "max_abs_err": k3_err,
         **k3_entry,
+        "skewed_ms": k3_skew["launch"],
+        "skewed_device_ms": k3_skew["device"],
+        "skewed_order_ms": k3_skew["order"],
+        "skewed_library_ms": k3_skew["library"],
+        "skewed_bound_ms": k3_skew["bound"],
         "checked": True,
         "shapes": "the VPA recommender: a RunOnce's memory-bank feed "
-                  "(100,000 samples into 33,790 x 176 bins; ms, plain_ms, "
-                  "bound_ms, library_ms there), the history's CPU bank "
-                  "(history_*); XLA's scatter-add, no Pallas kernel; "
-                  "library_ms: atomic index_add_ on bins and totals; "
-                  "plain_ms: the plain version on the CPU",
+                  "(100,000 samples into 33,790 x 176 bins; ms, device_ms, "
+                  "order_ms, plain_ms, bound_ms, library_ms there), the "
+                  "history's CPU bank (history_*), hist_cases' skewed batch "
+                  "(skewed_*, 60,000 samples, 90 % in one row, reported); "
+                  "ms: as launched from Python, device_ms: every pass, "
+                  "order_ms: the radix passes alone; XLA's scatter-add, no "
+                  "Pallas kernel; library_ms: atomic index_add_ on bins and "
+                  "totals; plain_ms: the plain version on the CPU",
     }, {
         "name": "constrained_wave_placer",
         "route": "cuda",

@@ -1,6 +1,12 @@
 // The constrained wave placer, hand-written for Hopper (sm_90a): B lanes,
 // one thread-block cluster a lane, every wave of a lane on the device with
-// no host read.
+// no host read. Two entries: `ka_constrained` packs a lane's G groups
+// (`pack_lanes`), `ka_constrained_place` places one group a lane by waves
+// (`place_lanes`, the reference's `place_group_constrained` under vmap:
+// G = 1, every group by waves whatever its constraints, the count,
+// request, limit_one and constraints per lane through the lane strides,
+// and a lane whose `active` byte is 0 returns at once, its outputs left
+// as the caller holds them).
 //
 // Replaces XLA code with no pallas_call: the `lax.scan` over groups at
 // kubernetes_autoscaler_tpu/ops/constrained.py:239-290
@@ -62,7 +68,8 @@
 // stride in `ls` (0 for a row shared by every lane), its trailing dims
 // contiguous; outputs free_out [B,N,R], placed [B,G,N], scratch [B,4,N]
 // when the slices are in device memory (ka_constrained_config),
-// waves a u64 counter that each lane adds its wave count to. Launches on
+// waves a u64 counter that each lane adds its wave count to, active (the
+// place entry's) u8[B] or null. Launches on
 // the given stream and returns the CUDA error: a cluster the card cannot
 // schedule is an error.
 
@@ -82,7 +89,7 @@ using namespace ka;
 enum Field {
   kFreeIn, kFreeOut, kPlaced, kFeas, kReq, kWant, kLimit, kOrder,
   kSKind, kSSkew, kSSelf, kSCnt, kSElig, kAKind, kASelf, kAAny, kAOk, kAnti,
-  kCzb, kEzb, kMhb, kZcl, kZval, kScratch, kWaves, kNumFields
+  kCzb, kEzb, kMhb, kZcl, kZval, kScratch, kWaves, kActive, kNumFields
 };
 
 struct Params {
@@ -260,7 +267,8 @@ __device__ void sort_slice(const ConLane& L, int* perm, int* skey, unsigned* wt,
 
 template <bool kSmem, bool kClu>
 __global__ void __launch_bounds__(kConThreads, 1)
-constrained_kernel(Params p, int B, int G, int N, int R, int Z, int max_waves, int Ns) {
+constrained_kernel(Params p, int B, int G, int N, int R, int Z, int max_waves, int Ns,
+                   int place) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int CS = 1, rank = 0;
   if constexpr (kClu) {
@@ -268,6 +276,10 @@ constrained_kernel(Params p, int B, int G, int N, int R, int Z, int max_waves, i
     rank = static_cast<int>(cooperative_groups::this_cluster().block_rank());
   }
   const int b = blockIdx.x / CS;
+  // an inactive lane of `place`: every CTA of its cluster leaves here,
+  // before any barrier
+  const unsigned char* active = static_cast<const unsigned char*>(p.ptr[kActive]);
+  if (place && active != nullptr && active[b] == 0) return;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const Layout L = layout(Ns, R, Z, CS, T >> 5, kSmem);
@@ -358,7 +370,7 @@ constrained_kernel(Params p, int B, int G, int N, int R, int Z, int max_waves, i
     const int s_kind = *at<int>(p, kSKind, b, g);
     const int a_kind = *at<int>(p, kAKind, b, g);
     const bool anti = *at<unsigned char>(p, kAnti, b, g) != 0;
-    const bool con = s_kind > 0 || a_kind > 0 || anti;
+    const bool con = place || s_kind > 0 || a_kind > 0 || anti;
 
     // this group's request and its division codes (double-buffered: the
     // barrier below separates a group's writes from the previous reads)
@@ -480,7 +492,7 @@ struct Cached {
 std::mutex g_mu;
 Cached g_cached[kMaxDevices];
 
-using KernelFn = void (*)(Params, int, int, int, int, int, int, int);
+using KernelFn = void (*)(Params, int, int, int, int, int, int, int, int);
 // [slices in shared memory][a cluster of more than one CTA]
 const KernelFn kKernels[2][2] = {{constrained_kernel<false, false>, constrained_kernel<false, true>},
                                  {constrained_kernel<true, false>, constrained_kernel<true, true>}};
@@ -605,6 +617,28 @@ cudaError_t prepare(int B, int N, int R, int Z, int cluster, int placement, Laun
   return allow(c, out->smem_plane, CS > 1, out->smem);
 }
 
+int launch_lanes(const void* const* ptrs, const long long* strides, int B, int G, int N, int R,
+                 int Z, int max_waves, int cluster, int placement, int place, void* stream) {
+  if (B <= 0) return 0;
+  Launch l;
+  cudaError_t err = prepare(B, N, R, Z, cluster, placement, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p;
+  for (int i = 0; i < kNumFields; ++i) {
+    p.ptr[i] = ptrs[i];
+    p.ls[i] = strides[i];
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B * l.cluster, l.cluster, l.threads, l.smem,
+                                               static_cast<cudaStream_t>(stream), &attr);
+  int ns = l.ns;
+  void* args[] = {&p, &B, &G, &N, &R, &Z, &max_waves, &ns, &place};
+  err = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(kKernels[l.smem_plane][l.cluster > 1]), args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // What a launch of B lanes at (N, R, Z) would use on the current device:
@@ -626,25 +660,17 @@ extern "C" int ka_constrained_config(int B, int N, int R, int Z, int cluster, in
   return 0;
 }
 
+// B lanes, each its G groups in `order` (pack_lanes).
 extern "C" int ka_constrained(const void* const* ptrs, const long long* strides, int B, int G,
                               int N, int R, int Z, int max_waves, int cluster, int placement,
                               void* stream) {
-  if (B <= 0) return 0;
-  Launch l;
-  cudaError_t err = prepare(B, N, R, Z, cluster, placement, &l);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Params p;
-  for (int i = 0; i < kNumFields; ++i) {
-    p.ptr[i] = ptrs[i];
-    p.ls[i] = strides[i];
-  }
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B * l.cluster, l.cluster, l.threads, l.smem,
-                                               static_cast<cudaStream_t>(stream), &attr);
-  int ns = l.ns;
-  void* args[] = {&p, &B, &G, &N, &R, &Z, &max_waves, &ns};
-  err = cudaLaunchKernelExC(
-      &cfg, reinterpret_cast<const void*>(kKernels[l.smem_plane][l.cluster > 1]), args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_lanes(ptrs, strides, B, G, N, R, Z, max_waves, cluster, placement, 0, stream);
+}
+
+// B lanes, each one group by waves (place_lanes): `order` is {0}, `active`
+// (u8[B], or null for every lane) picks the lanes that run.
+extern "C" int ka_constrained_place(const void* const* ptrs, const long long* strides, int B,
+                                    int N, int R, int Z, int max_waves, int cluster,
+                                    int placement, void* stream) {
+  return launch_lanes(ptrs, strides, B, 1, N, R, Z, max_waves, cluster, placement, 1, stream);
 }

@@ -19,18 +19,17 @@ MAX_WAVES: placements beyond the cap are dropped, as in the reference (a
 zone spread with maxSkew 1 over 3 zones places about 3 pods a wave).
 
 Two entry points run B independent lanes at once, each its own node row:
-`place_lanes` places one group a lane (the reference's
+`constrained_kernel.place_lanes` places one group a lane (the reference's
 `place_group_constrained` under vmap: B = drain candidates), `pack_lanes`
 the whole FFD group loop of a lane (`pack_groups_constrained` under vmap:
 B = 1 for the filter pack, B = node groups for the expansion options),
 constrained groups by waves and the others by the one-shot first fit, as
 the reference's `lax.cond(is_con[g], slow, fast)` picks. On CUDA tensors
-`pack_lanes` is one launch of the hand-written kernel
-(csrc/constrained.cu): one thread-block cluster a lane runs every wave of
-the lane and the host reads nothing; `place_lanes` has no kernel and
-raises there (the card's drain waves run inside the drain kernel). On CPU
-tensors their plain versions run (ops/kernels/constrained_kernel.py): a
-Python loop of waves over all lanes, a finished lane frozen with
+each is one launch of the hand-written kernel (csrc/constrained.cu): one
+thread-block cluster a lane runs every wave of the lane and the host
+reads nothing (the card's drain waves run inside the drain kernel). On
+CPU tensors their plain versions run (ops/kernels/constrained_kernel.py):
+a Python loop of waves over all lanes, a finished lane frozen with
 `torch.where`, one "any lane active" flag read every WAVE_CHECK waves, and
 one read per pack of which groups have a wave loop to run.
 """
@@ -110,7 +109,7 @@ class GroupConstraints(_Tree):
 
     Built by `constraints_for_nodes` (real nodes) or inside the estimator
     (fresh template bins): leading dim G, node planes [G, N]. Gathered to
-    lanes (`place_lanes`), the leading dim is the lane axis B instead, and
+    lanes (`constrained_kernel.place_lanes`), the leading dim is the lane axis B instead, and
     `zone_cl` / `zone_valid` are [B or 1, N]."""
 
     s_kind: torch.Tensor          # i32[G] 0 none / 1 hostname / 2 zone
@@ -167,38 +166,6 @@ def constraints_for_nodes(specs: PodGroupTensors, planes: AffinityPlanes,
     )
 
 
-def place_lanes(free: torch.Tensor,       # i32[B|1, N, R]
-                feas: torch.Tensor,       # bool[B|1, N] full feasibility
-                req: torch.Tensor,        # i32[B|1, R]
-                want: torch.Tensor,       # i32[B]
-                limit_one: torch.Tensor,  # bool[B|1]
-                cons: GroupConstraints,   # gathered to lanes
-                max_zones: int,
-                active: torch.Tensor | None = None,  # bool[B]
-                out: tuple | None = None,  # (i32[B, N, R], i32[B, N])
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Wave-greedy placement of B independent lanes, each one constrained
-    group onto its own node row; returns (free', place i32[B, N]). The
-    reference's `place_group_constrained` under vmap: a lane runs while it
-    has pods left and its last wave placed some, for at most MAX_WAVES
-    waves. A lane with `active` false is left as `out` holds it (the input
-    capacity and no placement without `out`; `out` is written in place).
-
-    The plain version on CPU tensors (ops/kernels/constrained_kernel.py);
-    CUDA tensors raise, as no kernel places one group a lane.
-    `place_lanes.waves` and `place_lanes.flag_reads` count the plain
-    version's waves and host reads."""
-    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
-
-    return constrained_kernel.place_lanes(free, feas, req, want, limit_one,
-                                          cons, max_zones, active=active,
-                                          out=out)
-
-
-place_lanes.waves = 0
-place_lanes.flag_reads = 0
-
-
 def place_group_constrained(free: torch.Tensor,       # i32[N, R]
                             feas_n: torch.Tensor,     # bool[N]
                             req: torch.Tensor,        # i32[R]
@@ -208,10 +175,14 @@ def place_group_constrained(free: torch.Tensor,       # i32[N, R]
                             max_zones: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Wave-greedy placement of one constrained group; returns
-    (free', place[N]). `cons` has the group's leading dim removed."""
+    (free', place[N]). `cons` has the group's leading dim removed. One lane
+    of `constrained_kernel.place_lanes`: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
+
     lane = GroupConstraints(**{k: v[None] for k, v in vars(cons).items()})
     dev = free.device
-    free_out, place = place_lanes(
+    free_out, place = constrained_kernel.place_lanes(
         free[None], feas_n[None], req[None],
         torch.as_tensor(want, dtype=I32, device=dev).reshape(1),
         torch.as_tensor(limit_one, dtype=torch.bool, device=dev).reshape(1),

@@ -21,10 +21,11 @@ the MAX_WAVES cap cuts short. For the kernel's thread-block clusters: N
 slices, limit_one beside zone caps, and groups whose count is 0 or
 negative.
 
-The kernel has no mode that places one group a lane (`place_lanes` runs on
-the CPU only): `as_pack` turns a "place" case into one `pack_lanes` call
-over the same lanes, which the card tests and `chip_smoke.py` hold to the
-plain version.
+A "place" case runs through `place_lanes` (the kernel's place entry on the
+card); `as_pack` also turns it into one `pack_lanes` call over the same
+lanes, which reaches the pack entry's branches from the same inputs.
+`group_case` is one zone-spread group at the constrained world's width
+(N = 5,120, R = 8), the arguments of `ops/constrained.place_group_constrained`.
 """
 
 from __future__ import annotations
@@ -285,6 +286,28 @@ def _count_zero():
     c.args[3][::3] = 0
     c.args[3][1] = -5
     return c
+
+
+def group_case(seed=51, n=5120, r=8, want=2000):
+    """(free [N, R], feas [N], req [R], want, limit_one, cons, Z): one
+    group with a self-counted zone spread at maxSkew 1 over three zones
+    (three pods a wave, cut at MAX_WAVES), its fields without the group
+    axis, as `place_group_constrained` takes them."""
+    zcl = (np.arange(n) % 3)[None]
+    c = place_case(seed, 1, n, r=r, kinds={"s_kind": 2, "skew": 1,
+                                           "s_self": True, "a_kind": 0,
+                                           "anti": False},
+                   zone_rows=(zcl, np.ones((1, n), bool)))
+    free, feas, req, want_t, limit, cons, z = c.args
+    free.clamp_(min=0)
+    limit.zero_()
+    cons.cnt_zone_base.zero_()
+    cons.elig_zone_base.zero_()
+    cons.elig_zone_base[:, :3] = True
+    req[0] = torch.tensor([1, 2, 0, 1, 0, 3, 1, 0][:r], dtype=torch.int32)
+    want_t.fill_(want)
+    return (free[0], feas[0], req[0], want_t[0], limit[0],
+            GroupConstraints(**{k: v[0] for k, v in vars(cons).items()}), z)
 
 
 CASES = {

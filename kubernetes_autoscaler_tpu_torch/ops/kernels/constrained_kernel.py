@@ -9,17 +9,18 @@ Pallas kernel. The kernel is `csrc/constrained.cu`; its header says what
 bounds it and how its design answers that (one thread-block cluster a lane
 runs every wave of the lane, no host read).
 
-Two entry points:
+Two entry points, each one launch of the kernel on CUDA tensors and its
+plain version on CPU tensors:
 - `pack_lanes`: B lanes, each the whole group loop of `order` onto its node
   row: constrained groups by waves, the others by the one-shot first fit.
-  CPU tensors go through the plain version, CUDA tensors through the
-  kernel.
-- `place_lanes`: B lanes, each one group onto its own node row, by waves.
-  `active` (bool[B]) leaves a lane out: its outputs are what `out` holds
-  (the input free capacity and no placement when `out` is not given). It
-  has no kernel: the drain sweep's plain version runs its waves through
-  `place_lanes_plain` on either device, and the card runs the drain's
-  waves inside the drain kernel (csrc/drain.cu); on CUDA tensors it raises.
+- `place_lanes`: B lanes, each one group onto its own node row, by waves
+  (the kernel's place entry: one group a lane, a cluster a lane as the
+  pack runs). `active` (bool[B]) leaves a lane out: its outputs are what
+  `out` holds (the input free capacity and no placement when `out` is not
+  given). The drain sweep's plain version runs its waves through
+  `place_lanes_plain` on either device (the card's reference shares no
+  code with the kernel), and the card runs the drain's waves inside the
+  drain kernel (csrc/drain.cu).
 
 Every lane input is [L, ...] with L = 1 (a row every lane shares, passed
 with lane stride 0, never copied per lane) or B, its trailing dims
@@ -30,9 +31,9 @@ The plain versions run a Python loop of waves over the lanes at once, a
 finished lane frozen with `torch.where` as `while_loop` under `vmap` does,
 and read one "any lane active" flag every `ops/constrained.WAVE_CHECK`
 waves; `pack_lanes_plain` reads (order, which groups have a wave loop to
-run) once a call. `ops/constrained.place_lanes.waves` and `.flag_reads`
-count their waves and reads; the kernel adds each lane's waves to a
-device counter (`wave_counter`) and reads nothing.
+run) once a call. `place_lanes.waves` and `place_lanes.flag_reads` count
+their waves and reads; the kernel adds each lane's waves to a device
+counter (`wave_counter`) and reads nothing.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ FIELDS = ("free_in", "free_out", "placed", "feas", "req", "want", "limit",
           "s_elig", "a_kind", "a_self", "a_any", "a_ok_node",
           "anti_self_zone", "cnt_zone_base", "elig_zone_base",
           "min_host_base", "zone_cl", "zone_valid",
-          "scratch", "waves")
+          "scratch", "waves", "active")
 
 # the constraint fields: (dtype, trailing dims after the [L, G] lead as a
 # function of (n, z))
@@ -125,10 +126,10 @@ def _waves(free, feas, req, want, limit_one, cons, max_zones):
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for wave in range(_con.MAX_WAVES):
         if wave and wave % _con.WAVE_CHECK == 0:
-            _con.place_lanes.flag_reads += 1
+            place_lanes.flag_reads += 1
             if not bool(((rem > 0) & ~done).any()):
                 break
-        _con.place_lanes.waves += 1
+        place_lanes.waves += 1
         act = (rem > 0) & ~done
         fit = torch.minimum(fit_count(free_c, req), rem[:, None])
         fit = torch.where(feas, fit, 0)
@@ -204,7 +205,7 @@ def place_lanes_plain(free, feas, req, want, limit_one, cons, max_zones,
     if active is None:
         lanes = torch.arange(b, device=free.device)
     else:
-        _con.place_lanes.flag_reads += 1
+        place_lanes.flag_reads += 1
         lanes = active.nonzero().flatten()
         if not lanes.numel():
             return out
@@ -248,7 +249,7 @@ def pack_lanes_plain(free, mask, req, count, order, limit_one, cons,
     con0 = is_con.any(dim=0)
     order_h, slow_h, con_h = torch.stack(
         [order.to(I32), (con0 & (count > 0)).to(I32), con0.to(I32)]).tolist()
-    _con.place_lanes.flag_reads += 1
+    place_lanes.flag_reads += 1
 
     free_c = free
     placed = torch.zeros((b, g_total, n), dtype=I32, device=free.device)
@@ -332,6 +333,10 @@ def _lib():
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)]
         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.ka_constrained.restype = ctypes.c_int
+    lib.ka_constrained_place.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.ka_constrained_place.restype = ctypes.c_int
     lib.ka_constrained_config.argtypes = ([ctypes.c_int] * 6
                                           + [ctypes.POINTER(ctypes.c_int)])
     lib.ka_constrained_config.restype = ctypes.c_int
@@ -377,11 +382,12 @@ def launch_choice(b: int, n: int, r: int, z: int) -> tuple[int, int]:
 
 
 def launch(b: int, g: int, n: int, r: int, z: int, tensors: dict,
-           strides: dict) -> None:
+           strides: dict, place: bool = False) -> None:
     """One launch on checked CUDA tensors. `tensors` maps FIELDS names to
     tensors (the inputs, `free_out`, `placed`); the scratch rows and the
     wave counter are added here (each CTA sorts its nodes by zone itself).
-    Counted in `launches`."""
+    `place` takes the place entry (g = 1, every lane by waves, `active`
+    read). Counted in `launches`."""
     dev = tensors["free_out"].device
     cfg = config(b, n, r, z, *launch_choice(b, n, r, z))
     t = dict(tensors)
@@ -392,10 +398,15 @@ def launch(b: int, g: int, n: int, r: int, z: int, tensors: dict,
     ptrs = (ctypes.c_void_p * len(FIELDS))(*[
         t[f].data_ptr() if t.get(f) is not None else None for f in FIELDS])
     lane = (ctypes.c_longlong * len(FIELDS))(*[ls.get(f, 0) for f in FIELDS])
-    rc = _lib().ka_constrained(
-        ptrs, lane, b, g, n, r, z, _con.MAX_WAVES, cfg["cluster"],
-        2 if cfg["smem_plane"] else 1,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    where = 2 if cfg["smem_plane"] else 1
+    if place:
+        rc = _lib().ka_constrained_place(ptrs, lane, b, n, r, z,
+                                         _con.MAX_WAVES, cfg["cluster"],
+                                         where, stream)
+    else:
+        rc = _lib().ka_constrained(ptrs, lane, b, g, n, r, z, _con.MAX_WAVES,
+                                   cfg["cluster"], where, stream)
     if rc != 0:
         raise RuntimeError(f"constrained kernel launch failed: CUDA error {rc}")
     launch.launches += 1
@@ -414,31 +425,54 @@ def place_lanes(free: torch.Tensor,       # i32[B|1, N, R]
                 active: torch.Tensor | None = None,   # bool[B]
                 out: tuple | None = None,  # (i32[B, N, R], i32[B, N])
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Wave-greedy placement of B lanes, each one constrained group onto
-    its own node row; returns (free', place i32[B, N]). A lane with
-    `active` false is left as `out` holds it (the input capacity and no
-    placement without `out`); `out`, when given, is written in place. The
-    contract is checked on either device; CPU tensors take the plain
-    version, and CUDA tensors raise: no kernel takes one group a lane."""
+    """Wave-greedy placement of B independent lanes, each one group onto
+    its own node row; returns (free', place i32[B, N]). The reference's
+    `place_group_constrained` under vmap: a lane runs while it has pods
+    left and its last wave placed some, for at most MAX_WAVES waves. A lane
+    with `active` false is left as `out` holds it (the input capacity and
+    no placement without `out`); `out`, when given, is written in place.
+    The contract is checked on either device; CPU tensors take the plain
+    version, CUDA tensors the kernel's place entry (one launch, no host
+    read). `place_lanes.waves` and `place_lanes.flag_reads` count the plain
+    versions' waves and host reads."""
     b = want.shape[0]
     dev = want.device
     n, r = feas.shape[-1], free.shape[-1]
-    _lane("free", free, I32, b, (n, r), dev)
-    _lane("feas", feas, BOOL, b, (n,), dev)
-    _lane("req", req, I32, b, (r,), dev)
-    _lane("want", want, I32, b, (), dev, shared=False)
-    _lane("limit_one", limit_one, BOOL, b, (), dev)
-    _cons_strides(cons, b, None, n, max_zones, dev)
+    strides = {
+        "free_in": _lane("free", free, I32, b, (n, r), dev),
+        "feas": _lane("feas", feas, BOOL, b, (n,), dev),
+        "req": _lane("req", req, I32, b, (r,), dev),
+        "want": _lane("want", want, I32, b, (), dev, shared=False),
+        "limit": _lane("limit_one", limit_one, BOOL, b, (), dev),
+        **_cons_strides(cons, b, None, n, max_zones, dev)}
     if active is not None:
         _check("active", active, BOOL, (b,), dev)
     if out is not None:
         _check("free_out", out[0], I32, (b, n, r), dev)
         _check("place_out", out[1], I32, (b, n), dev)
-    if dev.type != "cpu":
-        raise ValueError(f"place_lanes: no kernel for {dev} (pack_lanes and "
-                         f"the drain kernel run the card's waves)")
-    return place_lanes_plain(free, feas, req, want, limit_one, cons,
-                             max_zones, active=active, out=out)
+    if dev.type == "cpu":
+        return place_lanes_plain(free, feas, req, want, limit_one, cons,
+                                 max_zones, active=active, out=out)
+    if dev.type != "cuda":
+        raise ValueError(f"place_lanes: no kernel for {dev}")
+    if r < 1 or n < 1:
+        raise ValueError(f"place_lanes: N={n}, R={r} must be positive")
+    if out is None:
+        free_out = torch.empty((b, n, r), dtype=I32, device=dev)
+        if active is not None:   # an inactive lane keeps its input capacity
+            free_out.copy_(free.expand(b, n, r))
+        out = (free_out, torch.zeros((b, n), dtype=I32, device=dev))
+    tensors = {"free_in": free, "free_out": out[0], "placed": out[1],
+               "feas": feas, "req": req, "want": want, "limit": limit_one,
+               "order": torch.zeros((1,), dtype=I32, device=dev),
+               "active": active, **vars(cons)}
+    with torch.cuda.device(dev):
+        launch(b, 1, n, r, max_zones, tensors, strides, place=True)
+    return out
+
+
+place_lanes.waves = 0
+place_lanes.flag_reads = 0
 
 
 def pack_lanes(free: torch.Tensor,       # i32[B, N, R]

@@ -7,10 +7,13 @@ order.
 `CASES` maps each case's name to a builder; a builder returns
 [weights, total, agg, bucket, w] on the CPU. Besides the shapes of the
 recommender's feeds (a RunOnce's 100,000 samples over 20,000 aggregates, a
-history of 192 samples an aggregate), the cases reach a run that spans many
-thread blocks (one aggregate owning most samples), runs of one sample,
-bins that already hold weight, weights over many binades and a single
-sample.
+history of 192 samples an aggregate), the cases reach a skewed batch (one
+aggregate owning most samples), runs of one sample, bins that already hold
+weight, weights over many binades and a single sample, and the edges of the
+kernel's design: a bank past 65,536 rows (a row key of 17 bits, three sort
+passes), rows in descending sample order (the sort's stability), every
+sample dropped, one row holding a batch several sort tiles long, and n one
+past a tile boundary.
 
 `OUT_OF_BANK` lists (row, bucket) pairs outside a bank of OOB_ROWS x
 OOB_BUCKETS or counted from its end, and `out_of_bank_case` puts one of
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from kubernetes_autoscaler_tpu_torch.ops.kernels.histogram_kernel import TILE
 
 N_BUCKETS = 176
 
@@ -56,12 +61,13 @@ def _one_bin():
     return a
 
 
-def _history():
-    """192 samples for each of 2,000 aggregates, hourly, in series order
-    (each aggregate's samples together), into a grown bank."""
-    rng = np.random.default_rng(3)
-    n_agg, per = 2000, 192
-    a = hist_case(3, 3380, n_agg * per, rows=n_agg, start_density=0.0)
+def history_case(n_agg=2000, per=192, bank=3380, seed=3):
+    """`per` samples for each of n_agg aggregates, hourly, in series order
+    (each aggregate's samples together), into a grown bank of `bank` rows
+    that starts empty. The recommender's history feed is 20,000 x 192 into
+    33,790 rows."""
+    rng = np.random.default_rng(seed)
+    a = hist_case(seed, bank, n_agg * per, rows=n_agg, start_density=0.0)
     a[2] = torch.from_numpy(np.repeat(np.arange(n_agg, dtype=np.int32), per))
     a[4] = torch.from_numpy(
         (rng.lognormal(-1, 1, n_agg * per)
@@ -70,14 +76,55 @@ def _history():
     return a
 
 
+def _wide_bank():
+    """A bank of 70,000 rows (a row key of 17 bits: three sort passes of 6
+    bits), narrow bins."""
+    return hist_case(10, 70_000, 30_000, bins=8)
+
+
+def _descending_rows():
+    """Rows in descending sample order, 20 samples a row over 4 bins: the
+    sort reverses the rows, and every bin's adds must keep sample order."""
+    a = hist_case(11, 300, 6000, bins=4, w_sigma=6.0)
+    a[2] = torch.from_numpy(np.repeat(np.arange(300, dtype=np.int32)[::-1],
+                                      20))
+    a[3] = torch.from_numpy(np.tile(np.arange(4, dtype=np.int32), 1500))
+    return a
+
+
+def _all_dropped():
+    """Every sample's row outside the bank (past its end, or before its
+    start counted from the end): nothing changes."""
+    a = hist_case(12, 50, 3000)
+    rng = np.random.default_rng(12)
+    a[2] = torch.from_numpy(np.where(rng.random(3000) < 0.5,
+                                     rng.integers(50, 200, 3000),
+                                     rng.integers(-200, -50, 3000))
+                            .astype(np.int32))
+    return a
+
+
+def _one_row_many_tiles():
+    """One row holding every sample of a batch five sort tiles and more
+    long (10,247 samples), over a few bins."""
+    a = hist_case(13, 10, 5 * TILE + 7, bins=6, w_sigma=4.0)
+    a[2].fill_(3)
+    return a
+
+
 CASES = {
     "run_once": lambda: hist_case(0, 33790, 100_000, rows=20_000),
-    "history": _history,
+    "history": history_case,
     "skewed": lambda: hist_case(4, 500, 60_000, skew=0.9),
     "sparse_runs": lambda: hist_case(5, 50_000, 30_000),
     "wide_weights": lambda: hist_case(6, 64, 20_000, w_sigma=8.0),
     "one_sample": _one_sample,
     "one_bin": _one_bin,
+    "wide_bank": _wide_bank,
+    "descending_rows": _descending_rows,
+    "all_dropped": _all_dropped,
+    "one_row_many_tiles": _one_row_many_tiles,
+    "tile_edge": lambda: hist_case(14, 40, 2 * TILE + 1),
 }
 
 

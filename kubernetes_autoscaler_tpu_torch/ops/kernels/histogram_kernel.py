@@ -17,7 +17,9 @@ but whose bucket is not adds to the row's total and to no bin.
 The device of the tensors decides: CPU tensors go through
 `scatter_add_ordered_plain` (`index_add_`, a sequential loop in sample
 order on the CPU), CUDA tensors through the kernel (an atomic
-`index_add_` on the card sums in no fixed order), and a tensor the kernel
+`index_add_` on the card sums in no fixed order; the kernel orders the
+samples by row with its own radix passes and folds each row in a warp,
+with no library sort), and a tensor the kernel
 does not take (dtype, shape, layout, device) raises on either device.
 There is no fallback from the kernel to the plain version. Both update the
 bank's tensors in place, and neither reads anything back to the host.
@@ -68,6 +70,29 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+TILE = 2048      # csrc/histogram.cu's kTile: samples a sort tile takes
+RADIX = 256      # kRadix: the digits a pass's count table keeps
+
+
+def sort_plan(a: int) -> tuple[int, int]:
+    """(passes, bits a digit) of the kernel's radix sort of row keys in
+    [0, A]: the keys' bit length in passes of at most 8 bits, as
+    csrc/histogram.cu's `plan` splits it."""
+    bits = max(a.bit_length(), 1)
+    passes = -(-bits // 8)
+    return passes, -(-bits // passes)
+
+
+def workspace_words(n: int, a: int) -> int:
+    """The u32 words of workspace a scatter of n samples into an A-row bank
+    takes (`ka_hist_workspace` in csrc/histogram.cu): two key and two value
+    buffers of n, and the control words (a count a digit a tile a pass,
+    each pass's digit totals, each row's end and count)."""
+    passes, _ = sort_plan(a)
+    tiles = -(-n // TILE)
+    return 4 * n + passes * RADIX * tiles + passes * RADIX + 2 * a
+
+
 @functools.cache
 def _entry():
     """The kernel's C entry point, loaded (and built if needed) and typed
@@ -76,8 +101,9 @@ def _entry():
 
     fn = load(SOURCE).ka_hist_scatter
     # every pointer and the stream as c_void_p: ctypes would cut them to int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,10 +117,9 @@ def scatter_add_ordered(weights: torch.Tensor,  # f32[A, B], updated in place
     """weights[agg[i], bucket[i]] += w[i] and total[agg[i]] += w[i] for
     every sample i, each bin and each total summed in sample order, the
     indices read as `.at[]` reads them (see the module's docstring). CPU
-    tensors take the plain version, CUDA tensors the kernel (one launch,
-    counted in `scatter_add_ordered.launches`, and no read to the host):
-    the samples whose row lies outside the bank sort past its last row,
-    where the kernel skips them."""
+    tensors take the plain version, CUDA tensors the kernel (one call of
+    its C entry, counted in `scatter_add_ordered.launches`, and no read to
+    the host)."""
     a, b = weights.shape
     n = agg.shape[0]
     dev = weights.device
@@ -103,7 +128,7 @@ def scatter_add_ordered(weights: torch.Tensor,  # f32[A, B], updated in place
     _check("agg", agg, torch.int32, (n,), dev)
     _check("bucket", bucket, torch.int32, (n,), dev)
     _check("w", w, torch.float32, (n,), dev)
-    if n == 0:
+    if n == 0 or a == 0:
         return
     if dev.type == "cpu":
         scatter_add_ordered_plain(weights, total, agg, bucket, w)
@@ -111,21 +136,22 @@ def scatter_add_ordered(weights: torch.Tensor,  # f32[A, B], updated in place
     if dev.type != "cuda":
         raise ValueError(f"scatter_add_ordered: no kernel for {dev}")
     with torch.cuda.device(dev):
-        sorted_row, order = torch.sort(_wrap(agg, a), stable=True)
-        launch(sorted_row, order, bucket, w, weights, total)
+        launch(weights, total, agg, bucket, w)
 
 
-def launch(sorted_row, order, bucket, w, weights, total) -> None:
-    """One launch of the kernel on checked CUDA tensors: `sorted_row` the
-    samples' rows in [0, A], sorted stably (A marks a dropped sample),
-    `order` the i64 sample index of each place, `bucket` the samples' raw
-    buckets (the kernel reads them as `.at[]` does). Counted in
+def launch(weights, total, agg, bucket, w, order_only: bool = False) -> None:
+    """One call of the C entry on checked CUDA tensors: the sort passes and
+    the fold, on the current stream, into a workspace allocated here
+    (`workspace_words`). `order_only` stops after the sort passes and
+    leaves the bank as it is (a timing aid). Counted in
     `scatter_add_ordered.launches`."""
-    n = sorted_row.shape[0]
+    a, b = weights.shape
+    n = agg.shape[0]
+    words = workspace_words(n, a)
+    ws = torch.empty((words,), dtype=torch.int32, device=weights.device)
     rc = _entry()(
-        sorted_row.data_ptr(), order.data_ptr(), bucket.data_ptr(),
-        w.data_ptr(), weights.data_ptr(), total.data_ptr(), n,
-        weights.shape[0], weights.shape[1],
+        agg.data_ptr(), bucket.data_ptr(), w.data_ptr(), weights.data_ptr(),
+        total.data_ptr(), ws.data_ptr(), words, n, a, b, int(order_only),
         torch.cuda.current_stream(weights.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"histogram scatter launch failed: CUDA error {rc}")

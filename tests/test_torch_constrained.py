@@ -51,6 +51,7 @@ from kubernetes_autoscaler_tpu_torch.ops import (
     predicates,
     schedule,
 )
+from kubernetes_autoscaler_tpu_torch.ops.kernels import constrained_kernel
 from kubernetes_autoscaler_tpu_torch.ops.pack import ffd_order
 
 ZONE = "topology.kubernetes.io/zone"
@@ -349,10 +350,10 @@ def test_wave_check_interval_changes_no_output(check, monkeypatch):
             with_constraints=True)
 
     default = run()
-    waves = constrained.place_lanes.waves
+    waves = constrained_kernel.place_lanes.waves
     monkeypatch.setattr(constrained, "WAVE_CHECK", check)
     assert_trees_equal(default, run())
-    assert constrained.place_lanes.waves > waves
+    assert constrained_kernel.place_lanes.waves > waves
 
 
 # ------------------------------------------------- the constrained branches
@@ -390,7 +391,7 @@ def test_simulate_removals_matches_reference(chunk):
         jnp.arange(n, dtype=jnp.int32), jnp.ones((n,), bool),
         max_pods_per_node=MPN, chunk=8, planes=ref_enc.planes,
         max_zones=ref_enc.dims.max_zones, with_constraints=True)
-    reads = constrained.place_lanes.flag_reads
+    reads = constrained_kernel.place_lanes.flag_reads
     got = drain.simulate_removals(
         enc.nodes, enc.specs, enc.scheduled,
         torch.arange(n, dtype=torch.int32), torch.ones((n,), dtype=torch.bool),
@@ -399,7 +400,7 @@ def test_simulate_removals_matches_reference(chunk):
     assert_trees_equal(ref, got)
     dec = leaves(ref)
     assert dec[".drainable"].any() and dec[".has_blocker"].any()
-    assert constrained.place_lanes.flag_reads > reads   # the slow lanes ran
+    assert constrained_kernel.place_lanes.flag_reads > reads   # the slow lanes ran
 
 
 # ----------------------------------------------------------- the steps

@@ -112,6 +112,22 @@ def test_cases_reach_their_edges():
     assert bool((zcl == zcl[:, :1]).all())
 
 
+def test_place_group_constrained_matches_reference():
+    """`ops/constrained.place_group_constrained` on con_cases.group_case
+    (the constrained world's width, one zone-spread group cut at
+    MAX_WAVES): byte-equal to the reference's."""
+    free, feas, req, want, limit, cons, z = con_cases.group_case()
+    ref = _ref_place(*(jnp.asarray(t.numpy()) for t in
+                       (free, feas, req, want, limit)),
+                     ref_con.GroupConstraints(**{
+                         k: jnp.asarray(v.numpy())
+                         for k, v in vars(cons).items()}), z)
+    got = constrained.place_group_constrained(free, feas, req, want, limit,
+                                              cons, z)
+    assert_equal(tuple(np.asarray(r) for r in ref), got)
+    assert int(got[1].sum()) == 3 * constrained.MAX_WAVES
+
+
 def test_active_leaves_out_untouched():
     """`active` false leaves a lane as `out` holds it; the active lanes are
     what a call over them alone gives."""
@@ -120,14 +136,14 @@ def test_active_leaves_out_untouched():
     b, n, r = free.shape
     out = (torch.full((b, n, r), -7, dtype=torch.int32),
            torch.full((b, n), -9, dtype=torch.int32))
-    reads = constrained.place_lanes.flag_reads
-    got = constrained.place_lanes(free, feas, req, want, limit, cons, z,
+    reads = constrained_kernel.place_lanes.flag_reads
+    got = constrained_kernel.place_lanes(free, feas, req, want, limit, cons, z,
                                   active=case.active, out=out)
     assert got[0] is out[0] and got[1] is out[1]
-    assert constrained.place_lanes.flag_reads > reads
+    assert constrained_kernel.place_lanes.flag_reads > reads
     off = ~case.active
     assert bool((out[0][off] == -7).all()) and bool((out[1][off] == -9).all())
-    alone = constrained.place_lanes(free, feas, req, want, limit, cons, z)
+    alone = constrained_kernel.place_lanes(free, feas, req, want, limit, cons, z)
     on = case.active
     assert torch.equal(out[0][on], alone[0][on])
     assert torch.equal(out[1][on], alone[1][on])

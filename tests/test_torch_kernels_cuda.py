@@ -276,18 +276,58 @@ def test_pack_kernel_on_sidecar_batched_inputs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(hist_cases.CASES))
-def test_histogram_kernel_cases(cuda, name):
+def test_histogram_kernel_cases(cuda, name, monkeypatch):
     """Every bin and total byte-equal to the plain version's sum in sample
-    order on the CPU."""
+    order on the CPU: one call of the C entry, no read to the host, and no
+    library sort on the way."""
     args = hist_cases.CASES[name]()
     dev_args = [a.to(cuda) for a in args]
     histogram_kernel.scatter_add_ordered_plain(*args)
     before = histogram_kernel.scatter_add_ordered.launches
-    histogram_kernel.scatter_add_ordered(*dev_args)
+
+    def no_sort(*a, **kw):
+        raise AssertionError("a library sort on the scatter's card route")
+
+    torch.cuda.synchronize()
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sort", no_sort)
+        m.setattr(torch, "argsort", no_sort)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            histogram_kernel.scatter_add_ordered(*dev_args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert histogram_kernel.scatter_add_ordered.launches == before + 1
-    assert torch.equal(dev_args[0].cpu(), args[0])
-    assert torch.equal(dev_args[1].cpu(), args[1])
+    for got, want in zip(dev_args[:2], args[:2]):
+        assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_histogram_workspace_matches_the_entry(cuda):
+    """The wrapper sizes the workspace as the C entry does
+    (`ka_hist_workspace`), over one to four sort passes and ragged tiles;
+    a workspace one word short is refused."""
+    import ctypes
+
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.build import load
+
+    lib = load(histogram_kernel.SOURCE)
+    lib.ka_hist_workspace.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.ka_hist_workspace.restype = ctypes.c_int64
+    for n in (1, 2047, 2048, 2049, 100_000, 3_840_000):
+        for a in (1, 255, 256, 33_790, 65_535, 65_536, 70_000, 2 ** 24 + 1):
+            assert lib.ka_hist_workspace(n, a) == \
+                histogram_kernel.workspace_words(n, a), (n, a)
+    weights, total, agg, bucket, w = [
+        x.to(cuda) for x in hist_cases.hist_case(0, 8, 50)]
+    ws = torch.empty((histogram_kernel.workspace_words(50, 8) - 1,),
+                     dtype=torch.int32, device=cuda)
+    rc = histogram_kernel._entry()(
+        agg.data_ptr(), bucket.data_ptr(), w.data_ptr(), weights.data_ptr(),
+        total.data_ptr(), ws.data_ptr(), ws.numel(), 50, 8, weights.shape[1],
+        0, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 @pytest.mark.cuda
@@ -332,14 +372,20 @@ def test_histogram_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def _con_outputs(case, device):
-    """(kernel outputs on the card, plain outputs on the CPU) of a case, a
-    "place" case as the pack_lanes call of its lanes (con_cases.as_pack)."""
-    case = con_cases.as_pack(case)
+    """(kernel outputs on the card, plain outputs on the CPU) of a case: a
+    "place" case through place_lanes, a "pack" case through pack_lanes,
+    one launch and no read to the host."""
     want = case.run(constrained_kernel.place_lanes,
                     constrained_kernel.pack_lanes)
+    case = case.to(device)
     before = constrained_kernel.launch.launches
-    got = case.to(device).run(constrained_kernel.place_lanes,
-                              constrained_kernel.pack_lanes)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = case.run(constrained_kernel.place_lanes,
+                       constrained_kernel.pack_lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert constrained_kernel.launch.launches == before + 1
     return [g.cpu() for g in got], want
@@ -361,6 +407,42 @@ def test_constrained_kernel_cases(cuda, name, plane, monkeypatch):
         monkeypatch.setattr(constrained_kernel, "launch_choice",
                             lambda b, n, r, z: (0, 1))
     _assert_con_equal(*_con_outputs(con_cases.CASES[name](), cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(con_cases.CASES))
+def test_constrained_kernel_pack_entry_on_place_cases(cuda, name):
+    """A "place" case as one pack_lanes call of its lanes
+    (con_cases.as_pack): the pack entry's branches on the same inputs."""
+    case = con_cases.CASES[name]()
+    _assert_con_equal(*_con_outputs(con_cases.as_pack(case), cuda))
+
+
+@pytest.mark.cuda
+def test_place_group_constrained_on_the_card(cuda):
+    """`ops/constrained.place_group_constrained` at the constrained world's
+    width (N = 5,120, R = 8, one zone-spread group, 128 waves): one launch
+    of the place entry, no read to the host, byte-equal to the CPU."""
+    from kubernetes_autoscaler_tpu_torch.ops import constrained
+
+    args = con_cases.group_case()
+    want = constrained.place_group_constrained(*args)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    dev[5] = constrained.GroupConstraints(
+        **{k: v.to(cuda) for k, v in vars(args[5]).items()})
+    counter = constrained_kernel.wave_counter(cuda)
+    counter.zero_()
+    before = constrained_kernel.launch.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = constrained.place_group_constrained(*dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert constrained_kernel.launch.launches == before + 1
+    assert int(counter) == constrained.MAX_WAVES
+    _assert_con_equal([g.cpu() for g in got], want)
 
 
 @pytest.mark.cuda
@@ -402,7 +484,7 @@ def test_constrained_kernel_counts_its_waves(cuda):
     exactly the cap; a call under sync debug mode "error" reads nothing."""
     counter = constrained_kernel.wave_counter(cuda)
     counter.zero_()
-    case = con_cases.as_pack(con_cases.CASES["max_waves"]()).to(cuda)
+    case = con_cases.CASES["max_waves"]().to(cuda)
     torch.cuda.set_sync_debug_mode("error")
     try:
         case.run(constrained_kernel.place_lanes, constrained_kernel.pack_lanes)
@@ -426,8 +508,11 @@ def test_constrained_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         f(free.transpose(1, 2).contiguous().transpose(1, 2), feas, req, want,
           limit, cons, z)
-    with pytest.raises(ValueError):   # no kernel places one group a lane
-        f(free, feas, req, want, limit, cons, z)
+    # the kernel places one group a lane: equal to the plain version
+    got = f(free, feas, req, want, limit, cons, z)
+    want_plain = constrained_kernel.place_lanes_plain(
+        *con_cases.CASES["drain_lanes"]().args)
+    _assert_con_equal([g.cpu() for g in got], want_plain)
     pack = con_cases.CASES["mixed_pack"]().to(cuda)
     free, mask, req, count, order, limit, cons, z = pack.args
     g = constrained_kernel.pack_lanes
@@ -622,8 +707,6 @@ def test_drain_topo_one_launch_no_wave_placer_and_no_host_read(cuda):
     """`simulate_removals(..., with_constraints=True)` on CUDA tensors: one
     drain launch, no wave placer launch, no plain sweep, nothing read back
     to the host; equal to the CPU's."""
-    from kubernetes_autoscaler_tpu_torch.ops import constrained
-
     case = drain_topo_cases.CASES["every_kind"]()
     kw = dict(max_pods_per_node=case.max_pods_per_node,
               max_groups_per_node=case.max_groups_per_node,
@@ -636,8 +719,8 @@ def test_drain_topo_one_launch_no_wave_placer_and_no_host_read(cuda):
     card = case.to(cuda)
     before = (drain_kernel.launch.launches, constrained_kernel.launch.launches,
               drain_kernel.sweep_plain.active_lanes,
-              constrained.place_lanes.waves,
-              constrained.place_lanes.flag_reads)
+              constrained_kernel.place_lanes.waves,
+              constrained_kernel.place_lanes.flag_reads)
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = drain.simulate_removals(*args(card), planes=card.planes, **kw)
@@ -646,8 +729,8 @@ def test_drain_topo_one_launch_no_wave_placer_and_no_host_read(cuda):
     torch.cuda.synchronize()
     assert (drain_kernel.launch.launches, constrained_kernel.launch.launches,
             drain_kernel.sweep_plain.active_lanes,
-            constrained.place_lanes.waves,
-            constrained.place_lanes.flag_reads) == \
+            constrained_kernel.place_lanes.waves,
+            constrained_kernel.place_lanes.flag_reads) == \
         (before[0] + 1,) + before[1:]
     for k, v in vars(want).items():
         assert torch.equal(getattr(got, k).cpu(), v), k

@@ -708,11 +708,18 @@ def test_scatter_plain_is_a_sequential_sum_on_every_case(name):
     """The cases the card holds the kernel to: the plain version equals an
     unbuffered sum in sample order (np.add.at) and XLA's scatter."""
     weights, total, agg, bucket, w = hist_cases.CASES[name]()
-    n_b = weights.shape[1]
+    n_a, n_b = weights.shape
     seq_w, seq_t = weights.numpy().copy(), total.numpy().copy()
-    np.add.at(seq_w.reshape(-1), agg.numpy().astype(np.int64) * n_b
-              + bucket.numpy(), w.numpy())
-    np.add.at(seq_t, agg.numpy(), w.numpy())
+    # rows and buckets as `.at[]` reads them: [-n, -1] from the end, a row
+    # still outside dropped, a bucket still outside adding to the total only
+    row, bkt = agg.numpy().astype(np.int64), bucket.numpy().astype(np.int64)
+    row = np.where((row >= -n_a) & (row < 0), row + n_a, row)
+    bkt = np.where((bkt >= -n_b) & (bkt < 0), bkt + n_b, bkt)
+    in_row = (row >= 0) & (row < n_a)
+    in_bin = in_row & (bkt >= 0) & (bkt < n_b)
+    np.add.at(seq_w.reshape(-1), row[in_bin] * n_b + bkt[in_bin],
+              w.numpy()[in_bin])
+    np.add.at(seq_t, row[in_row], w.numpy()[in_row])
     # JAX gets its own copies and finishes before the port updates the
     # torch tensors in place: jnp.asarray may alias a numpy buffer, and
     # its dispatch is asynchronous
@@ -724,6 +731,49 @@ def test_scatter_plain_is_a_sequential_sum_on_every_case(name):
     assert histogram_kernel.scatter_add_ordered.launches == before
     assert weights.numpy().tobytes() == seq_w.tobytes() == np.asarray(jw).tobytes()
     assert total.numpy().tobytes() == seq_t.tobytes() == np.asarray(jt).tobytes()
+
+
+def test_scatter_cases_reach_the_kernels_edges():
+    """The cases pin what their names say: a row key past 16 bits (three
+    sort passes), rows in descending sample order, every row dropped, one
+    row over more than five sort tiles, n one past a tile boundary."""
+    cases = {k: hist_cases.CASES[k]() for k in (
+        "wide_bank", "descending_rows", "all_dropped", "one_row_many_tiles",
+        "tile_edge")}
+    a = cases["wide_bank"][0].shape[0]
+    assert a > 65_536 and histogram_kernel.sort_plan(a) == (3, 6)
+    assert histogram_kernel.sort_plan(33_790) == (2, 8)
+    rows = cases["descending_rows"][2]
+    assert bool((rows[1:] <= rows[:-1]).all()) and rows[0] > rows[-1]
+    weights, total, agg, bucket, w = cases["all_dropped"]
+    assert bool(((agg >= weights.shape[0]) | (agg < -weights.shape[0])).all())
+    before = weights.clone(), total.clone()
+    histogram_kernel.scatter_add_ordered(weights, total, agg, bucket, w)
+    assert torch.equal(weights, before[0]) and torch.equal(total, before[1])
+    agg = cases["one_row_many_tiles"][2]
+    assert agg.numel() > 5 * histogram_kernel.TILE and agg.unique().numel() == 1
+    assert cases["tile_edge"][2].numel() == 2 * histogram_kernel.TILE + 1
+
+
+@pytest.mark.parametrize("name", sorted(hist_cases.CASES))
+def test_scatter_sort_plan_orders_rows_stably(name):
+    """The kernel's radix passes as its plan splits the row key (digits of
+    `sort_plan`'s width, least significant first, each pass stable) give
+    the samples stably sorted by row, dropped rows (key A) last; and the
+    workspace holds its buffers and control words."""
+    weights, _total, agg, _bucket, _w = hist_cases.CASES[name]()
+    a, n = weights.shape[0], agg.numel()
+    key = histogram_kernel._wrap(agg, a).long()
+    passes, bits = histogram_kernel.sort_plan(a)
+    assert passes * bits >= a.bit_length() and bits <= 8
+    order = torch.arange(n)
+    for p in range(passes):
+        digit = (key[order] >> (p * bits)) & ((1 << bits) - 1)
+        order = order[torch.sort(digit, stable=True).indices]
+    assert torch.equal(order, torch.sort(key, stable=True).indices)
+    tiles = -(-n // histogram_kernel.TILE)
+    assert histogram_kernel.workspace_words(n, a) == (
+        4 * n + passes * 256 * tiles + passes * 256 + 2 * a)
 
 
 def test_scatter_wrapper_checks_its_contract_on_the_cpu():

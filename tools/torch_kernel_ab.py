@@ -2,23 +2,30 @@
 """The port's kernels of each given tree, timed on the same inputs in one
 process.
 
-    python3 tools/torch_kernel_ab.py [--rows K1,K2,C,D] TREE [TREE ...]
+    python3 tools/torch_kernel_ab.py [--rows K1,K2,C,D,S] TREE [TREE ...]
 
 For each TREE (a checkout of the repo, e.g. the parent commit unpacked with
 `git archive` into a directory .gitignore lists), the sources of the rows
 asked for (`kubernetes_autoscaler_tpu_torch/csrc/pack.cu` for K1,
-`wavefront.cu` for K2, `constrained.cu` for row C, `drain.cu` for row D)
-are compiled with this checkout's nvcc flags into a temporary directory,
+`wavefront.cu` for K2, `constrained.cu` for row C, `drain.cu` for row D,
+`histogram.cu` for row S) are compiled with this checkout's nvcc flags
+into a temporary directory,
 all at once, and loaded with ctypes. THIS checkout's `chip_smoke.py` builds
 the inputs once: the pool-partitioned world's filter pack (K2, and K1 at
 B=1) and the main world's filter (B=1) and option (B=24) packs (K1); the
 constrained world's filter (B=1) and option (B=24) packs (row C); the main
 world's drain sweep, its reason pass, and the constrained world's sweep in
-topology mode (row D). Then, in rounds, every tree's kernels run on those
-inputs in the order given (give them as parent, change, change, parent),
-each launch first checked byte-equal to this checkout's plain version
-(computed once, on the card), and each time is the device time (CUDA events
-with the stream held while the host enqueues, median of chip_smoke.REPS).
+topology mode (row D); `hist_cases`' history feed at the recommender's
+shape (20,000 aggregates x 192 samples into 33,790 rows), its RunOnce feed
+and its skewed batch (row S). Then, in rounds, every tree's kernels run on
+those inputs in the order given (give them as parent, change, change,
+parent), each launch first checked byte-equal to this checkout's plain
+version (computed once, on the card; row S's on the CPU, where its order
+holds), and each time is the device time (CUDA events with the stream held
+while the host enqueues, median of chip_smoke.REPS). Row S also reports
+its time as launched from Python (`launched_ms`): the whole operation,
+which for a tree whose entry takes the samples sorted by row (the first
+design) includes the index wrap and the stable `torch.sort` before it.
 
 A tree's K2 entry either takes a `delta` scratch plane (the one-CTA design)
 or a cluster size and a free-plane placement and no scratch (the cluster
@@ -28,8 +35,11 @@ one-CTA design) or a cluster size, a placement and a [B, 4, N] scratch,
 sorting by zone itself (the cluster design, which exports
 `ka_constrained_config`). Row D's entry takes a pointer array: the fit
 plane's scratch rides at its end, which a tree without the pre-pass never
-reads. The tool calls whichever each library has. Prints one JSON line per
-tree and round, then the card line; needs a card.
+reads. Row S's entry either takes (sorted rows, order) from a library sort
+(the first design) or the raw samples and a workspace, ordering them itself
+(the radix design, which exports `ka_hist_workspace`). The tool calls
+whichever each library has. Prints one JSON line per tree and round, then
+the card line; needs a card.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 2
 SOURCES = {"K1": "pack.cu", "K2": "wavefront.cu", "C": "constrained.cu",
-           "D": "drain.cu"}
+           "D": "drain.cu", "S": "histogram.cu"}
 
 # csrc/constrained.cu's Field enum of the one-CTA design (with the kPlace
 # mode's `active` row), in order
@@ -265,6 +275,48 @@ def drain_launcher(lib):
     return launch
 
 
+def hist_launcher(lib):
+    """Row S's scatter (weights, total, agg, bucket, w; the bank updated in
+    place) through `lib`, either design."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.histogram_kernel import (
+        _wrap,
+    )
+
+    fn = lib.ka_hist_scatter
+    radix = hasattr(lib, "ka_hist_workspace")
+    if radix:
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.ka_hist_workspace.argtypes = [ctypes.c_int64, ctypes.c_int]
+        lib.ka_hist_workspace.restype = ctypes.c_int64
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def launch(weights, total, agg, bucket, w):
+        a, b = weights.shape
+        n = agg.shape[0]
+        stream = torch.cuda.current_stream().cuda_stream
+        if radix:
+            words = lib.ka_hist_workspace(n, a)
+            ws = torch.empty((words,), dtype=torch.int32, device=agg.device)
+            rc = fn(agg.data_ptr(), bucket.data_ptr(), w.data_ptr(),
+                    weights.data_ptr(), total.data_ptr(), ws.data_ptr(),
+                    words, n, a, b, 0, stream)
+        else:
+            rows, order = torch.sort(_wrap(agg, a), stable=True)
+            rc = fn(rows.data_ptr(), order.data_ptr(), bucket.data_ptr(),
+                    w.data_ptr(), weights.data_ptr(), total.data_ptr(), n, a,
+                    b, stream)
+        if rc != 0:
+            raise RuntimeError(f"row S launch failed: CUDA error {rc}")
+        return weights, total
+    return launch
+
+
 def con_inputs():
     """Row C's and row D's topology inputs from one step of the constrained
     world: ({name: pack_lanes args}, (SweepInputs, TopoInputs, K))."""
@@ -299,6 +351,21 @@ def inputs(rows):
         return "K1", bits, pack_kernel.pack_groups_batched_plain(*a)
 
     out = {}
+    if "S" in rows:
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import (
+            hist_cases,
+            histogram_kernel,
+        )
+
+        for name, args in (
+                ("S history A=33790 n=3840000",
+                 hist_cases.history_case(20_000, 192, 33_790)),
+                ("S RunOnce A=33790 n=100000", hist_cases.CASES["run_once"]()),
+                ("S skewed A=500 n=60000", hist_cases.CASES["skewed"]())):
+            want = [a.clone() for a in args[:2]]
+            histogram_kernel.scatter_add_ordered_plain(*want, *args[2:])
+            out[name] = ("S", tuple(a.to(cs.DEVICE) for a in args),
+                         tuple(want))
     if "K1" in rows or "K2" in rows:
         enc, groups = cs.build_world(cs.NODES, cs.PODS, cs.POD_GROUPS,
                                      cs.NODEGROUPS, 0, cs.DEVICE, pools=cs.POOLS,
@@ -368,7 +435,7 @@ def flat(row, res):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", default="K1,K2,C,D",
+    ap.add_argument("--rows", default="K1,K2,C,D,S",
                     help="comma-separated rows to build and time")
     ap.add_argument("trees", nargs="+")
     a = ap.parse_args()
@@ -388,28 +455,38 @@ def main() -> int:
             os.makedirs(out_dir)
             libs = build_tree(tree, out_dir, rows)
             make = {"K1": k1_launcher, "K2": k2_launcher, "C": con_launcher,
-                    "D": drain_launcher}
+                    "D": drain_launcher, "S": hist_launcher}
             launchers[tree] = {row: make[row](lib) for row, lib in libs.items()}
         cases = inputs(rows)
         torch.cuda.synchronize()
         print(json.dumps({"cases": list(cases)}), flush=True)
         for rnd in range(ROUNDS):
             for tree in trees:
-                times = {}
+                times, launched = {}, {}
                 for name, (row, args, want) in cases.items():
                     fn = launchers[tree][row]
-                    got = fn(*args)
+                    if row == "S":   # in place: a fresh bank each run
+                        got = fn(*[a.clone() for a in args[:2]], *args[2:])
+                        args = (*[a.clone() for a in args[:2]], *args[2:])
+                    else:
+                        got = fn(*args)
                     torch.cuda.synchronize()
                     for k, (g, w) in enumerate(zip(got, flat(row, want))):
+                        g, w = g.cpu(), w.cpu()
                         if g.dtype != w.dtype or g.shape != w.shape or \
-                                not torch.equal(g, w):
+                                g.numpy().tobytes() != w.numpy().tobytes():
                             raise AssertionError(f"{tree} {name}: output {k} "
                                                  f"differs from the plain "
                                                  f"version")
                     times[name] = cs.cuda_ms(lambda fn=fn, args=args: fn(*args),
                                              cs.REPS, hold=True)
-                print(json.dumps({"tree": tree, "round": rnd,
-                                  "device_ms": times}), flush=True)
+                    if row == "S":
+                        launched[name] = cs.cuda_ms(
+                            lambda fn=fn, args=args: fn(*args), cs.REPS)
+                line = {"tree": tree, "round": rnd, "device_ms": times}
+                if launched:
+                    line["launched_ms"] = launched
+                print(json.dumps(line), flush=True)
     print(card, flush=True)
     return 0
 
