@@ -11,21 +11,30 @@ its own failure:
                 and the native confirmation's host library
   3. kernels    each kernel (K1 pack.cu, K2 wavefront.cu, the VPA scatter
                 histogram.cu, the wave placer constrained.cu, the drain sweep
-                drain.cu) against its plain PyTorch version on the card,
+                drain.cu, the predicate plane predicates.cu: every case of
+                pred_cases through every public function of ops/predicates.py,
+                one launch each) against its plain PyTorch version on the card,
                 byte for byte, on seeded cases (the wave placer's "place"
                 cases through its place entry, one launch and no host read
-                each, and as one pack; place_group_constrained at N=5,120);
-                the scatter's times on a skewed batch
+                each, and as one pack; place_group_constrained at N=5,120,
+                with its times, the plain version's on the card and the
+                bound); the scatter's times on a skewed batch
   4. main       `run_once_fused` on the bench world (5,000 nodes, 50,000
                 pending pods in 25 groups, 40,000 residents, 20 node groups):
                 step and phase times, launches per step (K1 2, the drain
-                kernel 1), peak memory, invariants, and with --profile device
+                kernel 1, the predicate plane 3), peak memory, invariants, and
+                with --profile device
                 time by kernel and the device's busy share; K1 on the inputs
                 the path gives it and its times there; the drain kernel on
                 the step's own sweep inputs (recorded from one step), both
                 modes byte-equal to the plain version, one step with no host
                 read in the sweep, its times, the plain version's on the
-                card and the bound
+                card and the bound; [predicates]: the predicate plane on the
+                step's own plane calls (recorded from one step) byte-equal to
+                its plain version on the card, each shape's device time, as
+                launched, the plain version's and the bound, and the step with
+                the plane against the step with the plain plane in its place
+                (kernels a step by torch.profiler, step p50/p90, alternating)
   5. wavefront  the phased scale-up with a wavefront plan on the
                 pool-partitioned bench world (5 pools of 1,000 nodes, each
                 pending group pinned to one pool): plan time and plane fetch
@@ -102,7 +111,9 @@ its own failure:
                 world with BASELINE.json config #5's constraints (20 of the
                 25 pending groups: zone spread, hostname spread, hostname
                 anti-affinity and zone affinity to residents): step and
-                phase times, waves and flag reads per phase, one step under
+                phase times, waves and flag reads per phase, the predicate
+                plane's 7 launches a step and its [predicates] as in 4, one
+                step under
                 torch.profiler, peak memory, the decision; the wave-check
                 interval swept (outputs byte-equal); `run_once_sim` with
                 constraints
@@ -780,8 +791,9 @@ def drain_launches():
 
 def main_phase(args, dims, kernel, plain):
     """Phase 4: the fused step on the main world. Returns (world, K1
-    launches, K1 entry fields, max abs err, drain kernel launches) over the
-    timed steps (the drain's None for a port without the kernel)."""
+    launches, K1 entry fields, max abs err, drain kernel launches, row P
+    launches) over the timed steps (the drain's and row P's None for a port
+    without the kernel)."""
     from kubernetes_autoscaler_tpu_torch.ops import autoscale_step, drain
     from kubernetes_autoscaler_tpu_torch.ops.binpack import option_pack_inputs
     from kubernetes_autoscaler_tpu_torch.ops.kernels import pack_kernel
@@ -802,6 +814,7 @@ def main_phase(args, dims, kernel, plain):
 
     torch.cuda.reset_peak_memory_stats()
     pack_kernel.pack_groups_batched.launches = 0
+    reset_pred_launches()
     d0 = drain_launches()
     step_ms, phase_ms = [], {p: [] for p in autoscale_step.PHASES}
     for _ in range(STEPS):
@@ -821,6 +834,7 @@ def main_phase(args, dims, kernel, plain):
             phase_ms[a].append(events[a].elapsed_time(events[b]))
     launches = pack_kernel.pack_groups_batched.launches
     d_launches = None if d0 is None else drain_launches() - d0
+    p_launches = pred_launches()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"[main] step ms over {STEPS} steps: p50 {pct(step_ms, 50)} "
         f"p90 {pct(step_ms, 90)}")
@@ -838,6 +852,13 @@ def main_phase(args, dims, kernel, plain):
         if d_launches != STEPS:
             raise AssertionError(f"expected 1 drain launch per step, got "
                                  f"{d_launches} in {STEPS} steps")
+    if p_launches is not None:
+        log(f"[main] predicate plane (row P) launches: {p_launches} in {STEPS} "
+            f"steps ({p_launches / STEPS:g} per step: the filter, the "
+            f"templates, the drain's preparation)")
+        if p_launches != 3 * STEPS:
+            raise AssertionError(f"expected 3 row P launches per step, got "
+                                 f"{p_launches} in {STEPS} steps")
     if args.profile:
         profile_step(step, pct(step_ms, 50), args.profile)
 
@@ -885,7 +906,7 @@ def main_phase(args, dims, kernel, plain):
             bound_by = "operations"
     entry = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by}
-    return (enc, groups), launches, entry, max_err, d_launches
+    return (enc, groups), launches, entry, max_err, d_launches, p_launches
 
 
 # ---------------------------------------------------------------- the drain
@@ -1123,6 +1144,277 @@ def drain_phase(card, dims, world):
              "explain_device_ms": t["explain"], "plain_ms": t["plain"],
              "bound_ms": bound, "bound_by": bound_by, "nodes_needed": needed}
     return entry, err
+
+
+# ---------------------------------------------------------------- predicates
+
+
+PRED_AB_STEPS = 10     # steps a side of [predicates]' kernel/plain step A/B
+
+
+def pred_launches():
+    """Row P's launches so far; None for a port without the kernel (an
+    older tree measured by tools/torch_loop_ab.py)."""
+    try:
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
+    except ImportError:
+        return None
+    return predicate_kernel.launch.launches
+
+
+def reset_pred_launches():
+    try:
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
+    except ImportError:
+        return
+    predicate_kernel.launch.launches = 0
+
+
+class plain_plane:
+    """Inside: `predicate_kernel.plane` runs its plain version on the card
+    (the route the card took before row P): a measurement of the parent's
+    plane, never the main path."""
+
+    def __enter__(self):
+        from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
+
+        self.pk, self.real = predicate_kernel, predicate_kernel.plane
+
+        def plane(nodes, specs, checks, bits=False, group_mask=None):
+            predicate_kernel.check_inputs(nodes, specs, checks, bits,
+                                          group_mask)
+            return predicate_kernel.plane_plain(nodes, specs, checks, bits,
+                                                group_mask)
+
+        predicate_kernel.plane = plane
+        return self
+
+    def __exit__(self, *exc):
+        self.pk.plane = self.real
+
+
+def check_pred(name, args) -> int:
+    """Row P on one call's arguments (nodes, specs, checks, bits,
+    group_mask) against its plain version on the card, byte for byte, one
+    launch; returns the max abs difference."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    before = pk.launch.launches
+    got = pk.plane(*args)
+    want = pk.plane_plain(*args)
+    torch.cuda.synchronize()
+    if pk.launch.launches != before + 1:
+        raise AssertionError(f"{name}: {pk.launch.launches - before} row P "
+                             f"launches, expected 1")
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: row P differs from the plain version")
+    return err
+
+
+def pred_ops(args) -> tuple[int, int]:
+    """(the compares these inputs need, the reference formulation's) of one
+    plane: a non-zero selector probe against the L label slots, a non-zero
+    port against the NP used ports, a non-zero taint against the 2 Tl
+    tolerations of a group that does not tolerate all, 2R for resources
+    (a subtraction and a compare a slot) and 2 for the gates, on every
+    (g, n); the reference compares every slot with every probe slot, zero
+    or not."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    nodes, specs, checks, bits, mask = args
+    d, _ = pk.check_inputs(*args)
+    g, n = d["G"], d["N"]
+    need = ref = 0
+    if checks & pk.SELECTOR:
+        probes = int((specs.sel_req != 0).sum()) + int((specs.sel_neg != 0).sum())
+        need += probes * n * d["L"]
+        ref += g * n * (d["S"] * d["A"] + d["Sn"]) * d["L"]
+    if checks & pk.TAINTS:
+        need += (int((~specs.tolerate_all).sum()) * int((nodes.taint_exact != 0).sum())
+                 * 2 * d["Tl"])
+        ref += g * n * d["T"] * d["Tl"] * 2
+    if checks & pk.PORTS:
+        need += int((specs.port_hash != 0).sum()) * n * d["NP"]
+        ref += g * n * d["PP"] * d["NP"]
+    if checks & pk.RESOURCES:
+        need += 2 * d["R"] * g * n
+        ref += 2 * d["R"] * g * n
+    if checks & pk.GATES:
+        need += 2 * g * n
+        ref += 2 * g * n
+    return need, ref
+
+
+def pred_bound(args) -> tuple[float, str, int, int]:
+    """(bound ms, 'bytes'|'operations', compares needed, the reference's) of
+    one plane on these inputs: each plane the checks read once, the group
+    mask once, the output written once; the compares of `pred_ops`."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    nodes, specs, checks, bits, mask = args
+    d, _ = pk.check_inputs(*args)
+    in_bytes = sum(
+        getattr(nodes if owner == "nodes" else specs, name).numel()
+        * getattr(nodes if owner == "nodes" else specs, name).element_size()
+        for i, (owner, name, _, _) in enumerate(pk.FIELDS)
+        if any(checks & c and i in idx for c, idx in pk.READS.items()))
+    in_bytes += 0 if mask is None else mask.numel()
+    out_bytes = d["G"] * d["N"] * (2 if bits else 1)
+    need, ref = pred_ops(args)
+    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    t_ops = need / H100_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) \
+        + (need, ref)
+
+
+def pred_times(name, args, card) -> dict:
+    """Row P's times on one call's arguments: device time (the stream held
+    while the host enqueues), as launched from Python, the plain version's
+    on the card, and the bound."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    bound, bound_by, need, ref = pred_bound(args)
+    t = {"launch": cuda_ms(lambda: pk.plane(*args), REPS),
+         "kernel": cuda_ms(lambda: pk.plane(*args), REPS, hold=True),
+         "plain": cuda_ms(lambda: pk.plane_plain(*args), 5, warmup=1),
+         "bound": bound, "bound_by": bound_by, "ops_needed": need,
+         "ops_reference": ref}
+    d, _ = pk.check_inputs(*args)
+    log(f"[predicates] {name} (G={d['G']} N={d['N']} checks={args[2]} "
+        f"{'uint16 bits' if args[3] else 'bool'}): kernel {t['kernel']} ms "
+        f"device time, {t['launch']} ms as launched from Python; plain "
+        f"{t['plain']} ms on the card; bound {bound} ms ({bound_by}; "
+        f"{need} compares these inputs need, {ref} in the reference's "
+        f"formulation) ({card})")
+    return t
+
+
+def record_pred_calls(step) -> list:
+    """One step with row P's wrapper recording its arguments: [(nodes,
+    specs, checks, bits, group_mask)] in call order."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
+
+    got = []
+    real = predicate_kernel.plane
+
+    def plane(nodes, specs, checks, bits=False, group_mask=None):
+        got.append((nodes, specs, checks, bits, group_mask))
+        return real(nodes, specs, checks, bits, group_mask)
+
+    predicate_kernel.plane = plane
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        predicate_kernel.plane = real
+    return got
+
+
+def pred_phase(card, tag, step, calls_per_step) -> tuple[dict, int]:
+    """[predicates]: row P on the step's own plane calls (recorded from one
+    step): each byte-equal to the plain version on the card, the times of
+    each distinct shape, and the step with row P against the step with the
+    plain plane in its place, in one process: kernels a step (one step
+    under torch.profiler each) and step p50/p90 (PRED_AB_STEPS steps each,
+    alternating). Returns (JSON fields, max abs error)."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    calls = record_pred_calls(step)
+    if len(calls) != calls_per_step:
+        raise AssertionError(f"{tag}: {len(calls)} plane calls in a step, "
+                             f"expected {calls_per_step}")
+    err = 0
+    shapes = {}
+    for i, args in enumerate(calls):
+        d, _ = pk.check_inputs(*args)
+        kind = {pk.STATIC: "static", pk.SELECTOR: "selector"}.get(
+            args[2], f"checks {args[2]}")
+        name = f"{tag} call {i} {kind}"
+        err = max(err, check_pred(name, args))
+        shapes.setdefault((args[2], args[3], d["G"], d["N"]), (name, args))
+    log(f"[predicates] {tag}: {len(calls)} plane calls a step, each "
+        f"byte-equal to the plain version on the card ({card})")
+    times = {key: (name, pred_times(name, args, card))
+             for key, (name, args) in shapes.items()}
+    del calls, shapes
+
+    ab = {"kernel": [], "plain": []}
+    for i in range(PRED_AB_STEPS):
+        for mode in (("kernel", "plain") if i % 2 == 0 else ("plain", "kernel")):
+            def one(mode=mode):
+                if mode == "plain":
+                    with plain_plane():
+                        step()
+                else:
+                    step()
+            ab[mode] += host_ms(one, 1, warmup=1 if i == 0 else 0)
+    k_kernel, busy_kernel = profile_step(step, pct(ab["kernel"], 50), None,
+                                         tag=f"[predicates] {tag} row P:")
+    with plain_plane():
+        k_plain, busy_plain = profile_step(step, pct(ab["plain"], 50), None,
+                                           tag=f"[predicates] {tag} plain:")
+    log(f"[predicates] {tag} step with row P: p50 {pct(ab['kernel'], 50)} p90 "
+        f"{pct(ab['kernel'], 90)} ms, {k_kernel} device kernels a step, "
+        f"{busy_kernel} ms of kernel time; with the plain plane (the "
+        f"route before row P): p50 {pct(ab['plain'], 50)} p90 "
+        f"{pct(ab['plain'], 90)} ms, {k_plain} device kernels a step, "
+        f"{busy_plain} ms of kernel time ({PRED_AB_STEPS} steps each, "
+        f"alternating) ({card})")
+    entry = {"kernels_per_step": k_kernel, "plain_kernels_per_step": k_plain,
+             "kernel_ms_per_step": busy_kernel,
+             "plain_kernel_ms_per_step": busy_plain,
+             "step_p50_ms": pct(ab["kernel"], 50),
+             "plain_step_p50_ms": pct(ab["plain"], 50),
+             "shapes": {name: {k: t[k] for k in (
+                 "launch", "kernel", "plain", "bound", "bound_by",
+                 "ops_needed")} for name, t in times.values()}}
+    return entry, err
+
+
+def pred_json(launches, err, main, con) -> dict:
+    """Row P's entry of the kernels line: the filter's plane at [main]
+    (call 0: ms, device_ms, plain_ms, bound_ms), the templates' (call 1)
+    and [constrained]'s selector plane (call 1), kernels a step and step
+    p50 with row P and with the plain plane, every shape's times."""
+    f = main["shapes"]["[main] call 0 static"]
+    t = main["shapes"]["[main] call 1 static"]
+    sel = con["shapes"]["[constrained] call 1 selector"]
+    entry = {
+        "name": "predicate_plane",
+        "route": "cuda",
+        "source": "kubernetes_autoscaler_tpu_torch/csrc/predicates.cu",
+        "replaces": "kubernetes_autoscaler_tpu/ops/predicates.py:270",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": f["launch"], "device_ms": f["kernel"], "plain_ms": f["plain"],
+        "bound_ms": f["bound"], "bound_by": f["bound_by"],
+        "library_ms": None,
+        "checked": True,
+        "templates_ms": t["launch"], "templates_device_ms": t["kernel"],
+        "templates_plain_ms": t["plain"], "templates_bound_ms": t["bound"],
+        "selector_ms": sel["launch"], "selector_device_ms": sel["kernel"],
+        "selector_plain_ms": sel["plain"], "selector_bound_ms": sel["bound"],
+        "constrained_launches": con["launches"],
+        "shapes": "[main]'s run_once_fused: 3 planes a step (the filter's and "
+                  "the drain's G=64 x N=5120, the templates' G=64 x NG=24; "
+                  "ms, device_ms, plain_ms, bound_ms at the filter's, "
+                  "templates_* at the templates'); [constrained]'s: 7 a step "
+                  "(4 of them selector planes; selector_* at N=5120); XLA's "
+                  "fusion of ops/predicates.py, no Pallas kernel; plain_ms: "
+                  "the plain version on the card (≈ 570 launches a plane); "
+                  "library_ms: no single PyTorch call computes the plane",
+    }
+    for side, e in (("main", main), ("constrained", con)):
+        for k in ("kernels_per_step", "plain_kernels_per_step",
+                  "kernel_ms_per_step", "plain_kernel_ms_per_step",
+                  "step_p50_ms", "plain_step_p50_ms"):
+            entry[f"{side}_{k}"] = e[k]
+        entry[f"{side}_shapes"] = e["shapes"]
+    return entry
 
 
 def k1_times(a, kernel, plain):
@@ -2670,11 +2962,15 @@ def check_con(name, got, want) -> int:
     return err
 
 
-def check_place_group() -> int:
+def check_place_group(card) -> tuple[int, dict]:
     """`ops/constrained.place_group_constrained` at [constrained]'s width
     (con_cases.group_case: N = 5,120, R = 8, one zone-spread group) on the
     card: one launch of the place entry, no read to the host, byte-equal
-    to the plain version on the CPU. Returns the max abs difference."""
+    to the plain version on the CPU; its device time, as launched, the
+    plain version's (`place_lanes_plain`) on the card and the bound (each
+    input read once, each output written once; 4R + 40 operations on every
+    node of every lane-wave, the kernel's wave counter, as `con_bound`).
+    Returns (the max abs difference, its JSON fields)."""
     from kubernetes_autoscaler_tpu_torch.ops import constrained
     from kubernetes_autoscaler_tpu_torch.ops.kernels import con_cases
     from kubernetes_autoscaler_tpu_torch.ops.kernels import (
@@ -2699,11 +2995,37 @@ def check_place_group() -> int:
     def place():
         constrained.place_group_constrained(*dev)
 
+    free, feas, req, want_t, limit, cons, z = dev
+    lane = constrained.GroupConstraints(
+        **{k: v[None] for k, v in vars(cons).items()})
+
+    def plain():
+        ck.place_lanes_plain(free[None], feas[None], req[None],
+                             want_t.reshape(1), limit.reshape(1), lane, z)
+
+    counter = ck.wave_counter(DEVICE)
+    counter.zero_()
+    place()
+    torch.cuda.synchronize()
+    lane_waves = int(counter)
+    n, r = free.shape
+    in_bytes = sum(t.numel() * t.element_size() for t in
+                   [free, feas, req, want_t, limit, *vars(cons).values()])
+    t_bytes = (in_bytes + n * r * 4 + n * 4) / H100_BYTES_PER_S * 1e3
+    t_ops = lane_waves * n * (4 * r + 40) / H100_OPS_PER_S * 1e3
+    bound, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                       else (t_ops, "operations"))
+    t = {"place_device_ms": cuda_ms(place, REPS, hold=True),
+         "place_ms": cuda_ms(place, REPS),
+         "place_plain_ms": cuda_ms(plain, 3, warmup=1),
+         "place_bound_ms": bound, "place_bound_by": bound_by,
+         "place_lane_waves": lane_waves}
     log(f"[kernels] constrained wave placer place_group_constrained (the "
-        f"place entry, B=1 N=5120 R=8, {constrained.MAX_WAVES} waves): "
-        f"{cuda_ms(place, REPS, hold=True)} ms device time, "
-        f"{cuda_ms(place, REPS)} ms as launched from Python")
-    return err
+        f"place entry, B=1 N={n} R={r}, {lane_waves} lane-waves): "
+        f"{t['place_device_ms']} ms device time, {t['place_ms']} ms as "
+        f"launched from Python; plain {t['place_plain_ms']} ms on the card; "
+        f"bound {bound} ms ({bound_by}) ({card})")
+    return err, t
 
 
 def con_bound(args, lane_waves):
@@ -2776,9 +3098,11 @@ def constrained_phase(dims, card, profile_dir=None):
     every lane re-places by waves; step and phase times with the kernels'
     launches and lane-waves; one step with no host read; the kernels' and
     the plain versions' times; one step under torch.profiler; invariants
-    and the decision; `run_once_sim` with constraints. Returns (the wave
-    placer's launches, its JSON fields, its max abs error, the topology
-    mode's JSON fields with its launches and max abs error)."""
+    and the decision; row P on the step's plane calls and the step with the
+    plain plane (`pred_phase`); `run_once_sim` with constraints. Returns
+    (the wave placer's launches, its JSON fields, its max abs error, the
+    topology mode's JSON fields with its launches and max abs error, row
+    P's fields with its launches and max abs error)."""
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
         ClusterTensors,
     )
@@ -2790,6 +3114,7 @@ def constrained_phase(dims, card, profile_dir=None):
         drain_kernel,
         drain_topo_cases,
         pack_kernel,
+        predicate_kernel,
     )
 
     t0 = time.perf_counter()
@@ -2839,6 +3164,7 @@ def constrained_phase(dims, card, profile_dir=None):
     pack_kernel.pack_groups_batched.launches = 0
     ck.launch.launches = 0
     drain_kernel.launch.launches = 0
+    predicate_kernel.launch.launches = 0
     counter.zero_()
     d_counter.zero_()
     w0 = wave_counts()
@@ -2847,6 +3173,7 @@ def constrained_phase(dims, card, profile_dir=None):
         card, step, snap=counter.clone)
     launches = ck.launch.launches
     d_launches = drain_kernel.launch.launches
+    p_launches = predicate_kernel.launch.launches
     torch.cuda.synchronize()
     lane_waves = int(counter)
     d_waves, d_lanes = d_counter.tolist()
@@ -2876,6 +3203,12 @@ def constrained_phase(dims, card, profile_dir=None):
                              f"in {CON_STEPS} steps, not once a step")
     if w1 != w0 or drain_kernel.sweep_plain.active_lanes != plain_lanes:
         raise AssertionError("a plain version ran on the card")
+    log(f"[constrained] predicate plane (row P) launches: {p_launches} in "
+        f"{CON_STEPS} steps ({p_launches / CON_STEPS} a step: 3 planes and 4 "
+        f"selector planes) ({card})")
+    if p_launches != 7 * CON_STEPS:
+        raise AssertionError(f"row P launched {p_launches} times in "
+                             f"{CON_STEPS} steps, not 7 a step")
 
     # one step with no host read at all
     r0 = wave_counts()
@@ -2902,6 +3235,8 @@ def constrained_phase(dims, card, profile_dir=None):
 
     profile_step(step, pct(step_ms, 50), profile_dir, tag="[constrained]",
                  trace_name="chip_smoke_constrained_step.trace.json")
+    # row P on the step's own plane calls; the step with the plain plane
+    pred_entry, p_err = pred_phase(card, "[constrained]", step, 7)
 
     d = decision
     if not bool((d.verdict <= enc.specs.count).all()):
@@ -2978,7 +3313,8 @@ def constrained_phase(dims, card, profile_dir=None):
         ("ms", "launch"), ("device_ms", "kernel"), ("plain_ms", "plain"),
         ("bound_ms", "bound"), ("bound_by", "bound_by"),
         ("lane_waves", "lane_waves"), ("waved_lanes", "waved_lanes"))})
-    return launches, entry, err, d_entry
+    pred_entry.update({"launches": p_launches, "max_abs_err": p_err})
+    return launches, entry, err, d_entry, pred_entry
 
 
 def constrained_cpu_card_phase(dims, card):
@@ -4825,6 +5161,8 @@ def main() -> int:
         histogram_kernel,
         pack_cases,
         pack_kernel,
+        pred_cases,
+        predicate_kernel,
         wave_cases,
         wavefront_kernel,
     )
@@ -4839,7 +5177,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build([pack_kernel.SOURCE, wavefront_kernel.SOURCE,
                         histogram_kernel.SOURCE, constrained_kernel.SOURCE,
-                        drain_kernel.SOURCE])
+                        drain_kernel.SOURCE, predicate_kernel.SOURCE])
     log(f"[build] {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, lib in libs.items():
@@ -4912,7 +5250,8 @@ def main() -> int:
                                       ck.pack_lanes_plain)))
     finally:
         ck.launch_choice = choice
-    con_err = max(con_err, check_place_group())
+    err, place_entry = check_place_group(card)
+    con_err = max(con_err, err)
     drain_err = 0
     for name, case in drain_cases.CASES.items():
         case = case().to(DEVICE)
@@ -4923,14 +5262,27 @@ def main() -> int:
         case = case().to(DEVICE)
         topo_err = max(topo_err, check_drain_topo(
             f"case {name}", *case.inputs(), case.max_groups_per_node)[0])
+    # row P: every public function of ops/predicates.py on every case, one
+    # launch each, byte-equal to the plain version on the card
+    pred_err = 0
+    for name, case in pred_cases.CASES.items():
+        case = case().to(DEVICE)
+        for func in pred_cases.FUNCTIONS:
+            pred_err = max(pred_err, check_pred(
+                f"case {name} {func}", pred_cases.plane_args(func, case)))
+    log(f"[kernels] predicate plane == plain: {len(pred_cases.CASES)} cases x "
+        f"{len(pred_cases.FUNCTIONS)} functions")
 
     dims = Dims()
     # 4. the fused main path at full size; the drain kernel on its sweep
-    world, k1_launches, k1_entry, err, drain_main_launches = main_phase(
-        args, dims, k1, k1_plain)
+    (world, k1_launches, k1_entry, err, drain_main_launches,
+     pred_main_launches) = main_phase(args, dims, k1, k1_plain)
     k1_err = max(k1_err, err)
     drain_entry, err = drain_phase(card, dims, world)
     drain_err = max(drain_err, err)
+    # row P on the main step's own plane calls; the step with the plain plane
+    pred_main, err = pred_phase(card, "[main]", main_step(*world, dims)[1], 3)
+    pred_err = max(pred_err, err)
     # 5. the wavefront path at full size
     k2_launches, k2_entry, err = wavefront_phase(dims, world)
     k2_err = max(k2_err, err)
@@ -4955,8 +5307,9 @@ def main() -> int:
     # 14-17. the constrained tier: the fused step at full width, the steps
     # CPU against the card, the control loop at full width and CPU against
     # the card
-    con_launches, con_entry, err, topo_entry = constrained_phase(
+    con_launches, con_entry, err, topo_entry, pred_con = constrained_phase(
         dims, card, args.profile)
+    pred_err = max(pred_err, pred_con.pop("max_abs_err"))
     con_err = max(con_err, err)
     topo_entry["max_abs_err"] = max(topo_entry["max_abs_err"], topo_err)
     constrained_cpu_card_phase(dims, card)
@@ -5054,6 +5407,7 @@ def main() -> int:
         "launches": con_launches,
         "max_abs_err": con_err,
         **con_entry,
+        **place_entry,
         "library_ms": None,
         "checked": True,
         "shapes": "[constrained]'s run_once_fused: the filter pack (pack_lanes "
@@ -5061,7 +5415,9 @@ def main() -> int:
                   "plain_ms, bound_ms there), the options pack (B=NG, "
                   "N=max_new_nodes, one CTA a lane; options_*), 2 "
                   "launches a step (the drain's constrained slots run in the "
-                  "drain kernel's topology mode); XLA's while_loop and scan, "
+                  "drain kernel's topology mode); place_*: the place entry "
+                  "(place_group_constrained, con_cases.group_case, N=5120, "
+                  "off the steps' path); XLA's while_loop and scan, "
                   "no Pallas kernel; library_ms: no single PyTorch call "
                   "computes a constrained wave pack",
     }, {
@@ -5096,7 +5452,7 @@ def main() -> int:
                   "where every lane re-places by waves; XLA's scan with "
                   "lax.cond(is_con, slow, fast) under vmap, no Pallas kernel; "
                   "library_ms: no single PyTorch call computes it",
-    }]
+    }, pred_json(pred_main_launches, pred_err, pred_main, pred_con)]
     log(f"[result] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,14 @@
 """Batched scheduler-predicate evaluation: the pods×nodes feasibility mask.
 
 Counterpart of the reference package's `ops/predicates.py`: the boolean
-plane, the uint16 reason planes (`reason_mask`, `reason_mask_for_groups`:
-computed in int32 and cast to uint16 at the boundary) and their host-side
-numpy twins (`host_predicate_row`, `host_reason_row`,
+plane, the uint16 reason planes (`reason_mask`, `reason_mask_for_groups`)
+and their host-side numpy twins (`host_predicate_row`, `host_reason_row`,
 `summarize_reason_row`). Implemented filter semantics: NodeResourcesFit,
 NodeUnschedulable, NodeAffinity + nodeSelector, TaintToleration, NodePorts,
-and the readiness/validity gates. Every loop is over a static padding dim;
-each step is one broadcast over [G, N].
+and the readiness/validity gates. Every tensor function here is one call of
+`ops/kernels/predicate_kernel.plane`: one launch of `csrc/predicates.cu` on
+the card, the plain version (the reference's loops over the static padding
+dims, one broadcast over [G, N] a step) on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ from kubernetes_autoscaler_tpu_torch.models.resources import (
     NUM_STANDARD,
     PODS,
 )
+from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as _pk
+from kubernetes_autoscaler_tpu_torch.ops.kernels.predicate_kernel import (
+    REASON_CPU,
+    REASON_EPHEMERAL,
+    REASON_EXTENDED,
+    REASON_GROUP_INVALID,
+    REASON_MEMORY,
+    REASON_NODE_UNAVAILABLE,
+    REASON_PODS,
+    REASON_PORTS,
+    REASON_SELECTOR,
+    REASON_TAINT,
+)
 
 # ---- the REASON plane: packed per-(pod-group × node) refusal bits ----
 #
@@ -35,16 +49,8 @@ from kubernetes_autoscaler_tpu_torch.models.resources import (
 # the size of the int32 predicate inputs. The taxonomy follows the reference's
 # NoScaleUp/event reasons (estimator skip reasons + the per-filter verdicts
 # its scheduler framework reports) — see docs/OBSERVABILITY.md for the table.
-REASON_CPU = 1 << 0           # NodeResourcesFit: cpu request > free
-REASON_MEMORY = 1 << 1        # NodeResourcesFit: memory
-REASON_EPHEMERAL = 1 << 2     # NodeResourcesFit: ephemeral-storage
-REASON_PODS = 1 << 3          # NodeResourcesFit: pod-capacity slot
-REASON_EXTENDED = 1 << 4      # NodeResourcesFit: any extended resource (GPU…)
-REASON_SELECTOR = 1 << 5      # NodeAffinity / nodeSelector mismatch
-REASON_TAINT = 1 << 6         # TaintToleration: uncovered NoSchedule/NoExecute
-REASON_PORTS = 1 << 7         # NodePorts: hostPort collision
-REASON_NODE_UNAVAILABLE = 1 << 8  # invalid / unready / unschedulable node row
-REASON_GROUP_INVALID = 1 << 9     # padding pod-group row (specs.valid False)
+# The bit values live beside the kernel that writes them
+# (ops/kernels/predicate_kernel.py).
 
 # ordered: the first set bit in this order is the headline reason
 REASON_BITS = (
@@ -72,39 +78,17 @@ NO_NODE_IN_GROUP = "no-node-in-group"
 CAPPED_BY_LIMITS = "capped-by-limits"
 
 
-def _any_eq(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """table: i32[N, K] hash slots, h: i32[G] probes → bool[G, N] membership.
-
-    0 probes never match (0 is the padding sentinel and never a valid hash).
-    Builds a G×N×K bool temporary."""
-    hit = (table[None, :, :] == h[:, None, None]).any(dim=-1)
-    return hit & (h != 0)[:, None]
-
-
 def resources_fit(nodes: NodeTensors, specs: PodGroupTensors) -> torch.Tensor:
     """bool[G, N]: req <= cap - alloc on every resource slot."""
-    free = nodes.free()
-    return (specs.req[:, None, :] <= free[None, :, :]).all(dim=-1)
+    return _pk.plane(nodes, specs, _pk.RESOURCES)
 
 
 def selector_match(node_labels: torch.Tensor,
                    specs: PodGroupTensors) -> torch.Tensor:
     """bool[G, N]: every ANDed requirement has ≥1 alternative present, and no
     must-be-absent hash is present. node_labels: i32[N, L]."""
-    g = specs.sel_req.shape[0]
-    n = node_labels.shape[0]
-    ok = torch.ones((g, n), dtype=torch.bool, device=node_labels.device)
-    s_terms, s_alts = specs.sel_req.shape[1], specs.sel_req.shape[2]
-    for s in range(s_terms):
-        term = specs.sel_req[:, s, :]                      # i32[G, A]
-        term_active = (term != 0).any(dim=-1)              # bool[G]
-        sat = torch.zeros((g, n), dtype=torch.bool, device=node_labels.device)
-        for a in range(s_alts):
-            sat = sat | _any_eq(node_labels, term[:, a])
-        ok = ok & (~term_active[:, None] | sat)
-    for s in range(specs.sel_neg.shape[1]):
-        ok = ok & ~_any_eq(node_labels, specs.sel_neg[:, s])
-    return ok
+    return _pk.plane(_pk.NodePlanes(label_hash=node_labels), specs,
+                     _pk.SELECTOR)
 
 
 def taints_tolerated(taint_exact: torch.Tensor, taint_key: torch.Tensor,
@@ -112,31 +96,13 @@ def taints_tolerated(taint_exact: torch.Tensor, taint_key: torch.Tensor,
     """bool[G, N]: every NoSchedule/NoExecute taint is covered by a toleration
     (exact hash = Equal, key hash = Exists, or the tolerate-everything flag).
     taint_exact/taint_key: i32[N, T]."""
-    g = specs.tol_exact.shape[0]
-    n = taint_exact.shape[0]
-    ok = torch.ones((g, n), dtype=torch.bool, device=taint_exact.device)
-    for t in range(taint_exact.shape[1]):
-        te = taint_exact[:, t]                              # i32[N]
-        tk = taint_key[:, t]
-        active = te != 0                                    # bool[N]
-        covered = specs.tolerate_all[:, None].expand(g, n)
-        for tl in range(specs.tol_exact.shape[1]):
-            covered = covered | ((specs.tol_exact[:, tl][:, None] == te[None, :])
-                                 & active[None, :])
-            covered = covered | ((specs.tol_key[:, tl][:, None] == tk[None, :])
-                                 & (tk != 0)[None, :])
-        ok = ok & (~active[None, :] | covered)
-    return ok
+    return _pk.plane(_pk.NodePlanes(taint_exact=taint_exact,
+                                    taint_key=taint_key), specs, _pk.TAINTS)
 
 
 def ports_free(used_ports: torch.Tensor, specs: PodGroupTensors) -> torch.Tensor:
     """bool[G, N]: none of the pod's hostPorts collide with occupied ports."""
-    g = specs.port_hash.shape[0]
-    n = used_ports.shape[0]
-    conflict = torch.zeros((g, n), dtype=torch.bool, device=used_ports.device)
-    for pp in range(specs.port_hash.shape[1]):
-        conflict = conflict | _any_eq(used_ports, specs.port_hash[:, pp])
-    return ~conflict
+    return _pk.plane(_pk.NodePlanes(used_ports=used_ports), specs, _pk.PORTS)
 
 
 def host_predicate_row(label_hash: np.ndarray, taint_exact: np.ndarray,
@@ -254,43 +220,15 @@ def host_reason_row(planes: dict, gi: int,
     return bits
 
 
+def _checks(check_resources: bool) -> int:
+    return _pk.STATIC | (_pk.RESOURCES if check_resources else 0)
+
+
 def feasibility_mask(nodes: NodeTensors, specs: PodGroupTensors,
                      check_resources: bool = True) -> torch.Tensor:
     """The full predicate plane: bool[G, N]. `check_resources=False` gives the
     placement-independent mask (the packer checks capacity itself)."""
-    mask = selector_match(nodes.label_hash, specs)
-    mask = mask & taints_tolerated(nodes.taint_exact, nodes.taint_key, specs)
-    mask = mask & ports_free(nodes.used_ports, specs)
-    if check_resources:
-        mask = mask & resources_fit(nodes, specs)
-    gate = nodes.valid & nodes.ready & nodes.schedulable
-    mask = mask & gate[None, :]
-    return mask & specs.valid[:, None]
-
-
-def _bit(fail: torch.Tensor, b: int) -> torch.Tensor:
-    return torch.where(fail, b, 0).to(torch.int32)
-
-
-def _reason_bits(nodes: NodeTensors, specs: PodGroupTensors,
-                 check_resources: bool) -> torch.Tensor:
-    """`reason_mask`'s bits as int32[G, N]."""
-    bits = _bit(~selector_match(nodes.label_hash, specs), REASON_SELECTOR)
-    bits |= _bit(~taints_tolerated(nodes.taint_exact, nodes.taint_key, specs),
-                 REASON_TAINT)
-    bits |= _bit(~ports_free(nodes.used_ports, specs), REASON_PORTS)
-    if check_resources:
-        free = nodes.free()
-        lack = specs.req[:, None, :] > free[None, :, :]     # bool[G, N, R]
-        bits |= _bit(lack[..., CPU], REASON_CPU)
-        bits |= _bit(lack[..., MEMORY], REASON_MEMORY)
-        bits |= _bit(lack[..., EPHEMERAL], REASON_EPHEMERAL)
-        bits |= _bit(lack[..., PODS], REASON_PODS)
-        bits |= _bit(lack[..., NUM_STANDARD:].any(dim=-1), REASON_EXTENDED)
-    gate = nodes.valid & nodes.ready & nodes.schedulable
-    bits |= _bit(~gate, REASON_NODE_UNAVAILABLE)[None, :]
-    bits |= _bit(~specs.valid, REASON_GROUP_INVALID)[:, None]
-    return bits
+    return _pk.plane(nodes, specs, _checks(check_resources))
 
 
 def reason_mask(
@@ -301,12 +239,11 @@ def reason_mask(
     """The reason variant of `feasibility_mask`: uint16[G, N] packed refusal
     bits, one per (pod-equivalence-group, node). 0 ⇔ the pair is feasible —
     bit-for-bit `feasibility_mask(...) == (reason_mask(...) == 0)` for the
-    same `check_resources`. The bits are composed in int32 (CUDA has no
-    uint16 bitwise-or) and cast to uint16 at the end.
+    same `check_resources`.
 
     Not on the hot path: callers dispatch it only over already-refused
     groups / failed candidates (`reason_mask_for_groups` below)."""
-    return _reason_bits(nodes, specs, check_resources).to(torch.uint16)
+    return _pk.plane(nodes, specs, _checks(check_resources), bits=True)
 
 
 def reason_mask_for_groups(
@@ -319,8 +256,8 @@ def reason_mask_for_groups(
     (other rows zeroed so host consumers can't misread padding). Called once
     per *refused* loop; a fully-schedulable loop never calls it — callers
     count calls under `reason_extraction_dispatches`."""
-    bits = _reason_bits(nodes, specs, check_resources)
-    return torch.where(group_mask[:, None], bits, 0).to(torch.uint16)
+    return _pk.plane(nodes, specs, _checks(check_resources), bits=True,
+                     group_mask=group_mask)
 
 
 def reason_bit_names(bits: int) -> list[str]:

@@ -6,8 +6,9 @@ installed: `python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.
 Without a CUDA device every test skips. Tolerance: none (integer outputs,
 the constrained wave placer's and the drain sweep's int32 wrap-around
 included; the histogram scatter's f32 sums are added in the same order as
-the plain version's). `-k drain` runs the drain sweep's alone, `-k topo`
-its topology mode's.
+the plain version's; the predicate plane's bool and uint16 planes). `-k
+drain` runs the drain sweep's alone, `-k topo` its topology mode's, `-k
+predicate` the predicate plane's.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_autoscaler_tpu_torch.ops import drain, pack
+from kubernetes_autoscaler_tpu_torch.ops import drain, pack, predicates
 from kubernetes_autoscaler_tpu_torch.ops.kernels import (
     con_cases,
     constrained_kernel,
@@ -27,6 +28,8 @@ from kubernetes_autoscaler_tpu_torch.ops.kernels import (
     histogram_kernel,
     pack_cases,
     pack_kernel,
+    pred_cases,
+    predicate_kernel,
     wave_cases,
     wavefront_kernel,
 )
@@ -776,3 +779,106 @@ def test_drain_topo_kernel_rejects_what_it_does_not_take(cuda):
             for k, v in vars(topo).items() if k.endswith("_zone")}
     with pytest.raises(ValueError):
         f(inp, 4, False, topo=topo.replace(**wide))
+
+
+# ---- the predicate plane (csrc/predicates.cu)
+
+
+def _pred_equal(case, func):
+    """FUNCTIONS[func] on the card's case: one launch, byte-equal to the
+    plain version on the same CUDA tensors."""
+    want = predicate_kernel.plane_plain(*pred_cases.plane_args(func, case))
+    before = predicate_kernel.launch.launches
+    got = pred_cases.public(func, predicates, case.nodes, case.specs,
+                            case.group_mask)
+    torch.cuda.synchronize()
+    assert predicate_kernel.launch.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), func
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", list(pred_cases.FUNCTIONS))
+@pytest.mark.parametrize("name", list(pred_cases.CASES))
+def test_predicate_kernel_cases(cuda, name, func):
+    _pred_equal(pred_cases.CASES[name]().to(cuda), func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["filter", "templates", "sidecar"])
+def test_predicate_kernel_main_path_shapes(cuda, shape):
+    """The main path's shapes at Dims(): the filter's and the drain's G=64
+    x N=5,120, the templates' G=64 x NG=24, a sidecar lane's N=8,192."""
+    n, g = {"filter": (5120, 64), "templates": (24, 64),
+            "sidecar": (8192, 64)}[shape]
+    case = pred_cases.world(n + g, n, g).to(cuda)
+    for func in pred_cases.FUNCTIONS:
+        _pred_equal(case, func)
+
+
+@pytest.mark.cuda
+def test_predicate_kernel_every_check_subset(cuda):
+    """Every subset of the checks, both kinds, with and without a group
+    mask, on the widest case."""
+    case = pred_cases.CASES["wide"]().to(cuda)
+    for checks in range(1, predicate_kernel.ALL_CHECKS + 1):
+        for bits in (False, True):
+            for mask in (None, case.group_mask):
+                args = (case.nodes, case.specs, checks, bits, mask)
+                got = predicate_kernel.plane(*args)
+                want = predicate_kernel.plane_plain(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (checks, bits, mask is None)
+
+
+@pytest.mark.cuda
+def test_predicate_kernel_reads_nothing_back(cuda):
+    case = pred_cases.world(1, 5120, 64).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        predicates.feasibility_mask(case.nodes, case.specs, False)
+        predicates.reason_mask_for_groups(case.nodes, case.specs,
+                                          case.group_mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_predicate_smem_matches_the_entry(cuda):
+    """The wrapper's shared-memory reckoning is the C entry's
+    (`ka_pred_smem`), for every check subset at two sets of widths."""
+    import ctypes
+
+    from kubernetes_autoscaler_tpu_torch.ops.kernels.build import load
+
+    lib = load(predicate_kernel.SOURCE)
+    lib.ka_pred_smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.ka_pred_smem.restype = ctypes.c_int64
+    for name in ("wide", "narrow"):
+        case = pred_cases.CASES[name]()
+        for checks in range(1, predicate_kernel.ALL_CHECKS + 1):
+            d, _ = predicate_kernel.check_inputs(case.nodes, case.specs,
+                                                 checks)
+            dims = (ctypes.c_int * len(predicate_kernel.DIMS))(
+                *[d[k] for k in predicate_kernel.DIMS])
+            assert lib.ka_pred_smem(dims, checks) == \
+                predicate_kernel.smem_bytes(d, checks), (name, checks)
+
+
+@pytest.mark.cuda
+def test_predicate_kernel_rejects_what_it_does_not_take(cuda):
+    case = pred_cases.CASES["random"]().to(cuda)
+    nd, sp = case.nodes, case.specs
+    f = predicate_kernel.plane
+    with pytest.raises(ValueError):
+        f(nd, sp, predicate_kernel.STATIC, True, case.group_mask.cpu())
+    with pytest.raises(ValueError):
+        f(nd.replace(used_ports=nd.used_ports.cpu()), sp,
+          predicate_kernel.STATIC)
+    with pytest.raises(TypeError):
+        f(nd, sp.replace(req=sp.req.long()), predicate_kernel.ALL_CHECKS)
+    with pytest.raises(ValueError):
+        f(nd.replace(label_hash=nd.label_hash.t().contiguous().t()), sp,
+          predicate_kernel.SELECTOR)

@@ -2,13 +2,14 @@
 """The port's kernels of each given tree, timed on the same inputs in one
 process.
 
-    python3 tools/torch_kernel_ab.py [--rows K1,K2,C,D,S] TREE [TREE ...]
+    python3 tools/torch_kernel_ab.py [--rows K1,K2,C,D,S,P] TREE [TREE ...]
 
 For each TREE (a checkout of the repo, e.g. the parent commit unpacked with
 `git archive` into a directory .gitignore lists), the sources of the rows
 asked for (`kubernetes_autoscaler_tpu_torch/csrc/pack.cu` for K1,
 `wavefront.cu` for K2, `constrained.cu` for row C, `drain.cu` for row D,
-`histogram.cu` for row S) are compiled with this checkout's nvcc flags
+`histogram.cu` for row S, `predicates.cu` for row P) are compiled with
+this checkout's nvcc flags
 into a temporary directory,
 all at once, and loaded with ctypes. THIS checkout's `chip_smoke.py` builds
 the inputs once: the pool-partitioned world's filter pack (K2, and K1 at
@@ -17,7 +18,9 @@ constrained world's filter (B=1) and option (B=24) packs (row C); the main
 world's drain sweep, its reason pass, and the constrained world's sweep in
 topology mode (row D); `hist_cases`' history feed at the recommender's
 shape (20,000 aggregates x 192 samples into 33,790 rows), its RunOnce feed
-and its skewed batch (row S). Then, in rounds, every tree's kernels run on
+and its skewed batch (row S); every distinct plane call (checks, kind, G,
+N) of one `[main]` step and one `[constrained]` step (row P). Then, in
+rounds, every tree's kernels run on
 those inputs in the order given (give them as parent, change, change,
 parent), each launch first checked byte-equal to this checkout's plain
 version (computed once, on the card; row S's on the CPU, where its order
@@ -26,6 +29,10 @@ while the host enqueues, median of chip_smoke.REPS). Row S also reports
 its time as launched from Python (`launched_ms`): the whole operation,
 which for a tree whose entry takes the samples sorted by row (the first
 design) includes the index wrap and the stable `torch.sort` before it.
+Row P reports it too: a tree without `predicates.cu` (an older port) built
+its planes with the plain version, so for it row P is THIS checkout's plain
+version on the card (the same code, moved), whose time as launched is
+mostly the host's enqueue of its ≈ 570 launches.
 
 A tree's K2 entry either takes a `delta` scratch plane (the one-CTA design)
 or a cluster size and a free-plane placement and no scratch (the cluster
@@ -60,7 +67,7 @@ import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 2
 SOURCES = {"K1": "pack.cu", "K2": "wavefront.cu", "C": "constrained.cu",
-           "D": "drain.cu", "S": "histogram.cu"}
+           "D": "drain.cu", "S": "histogram.cu", "P": "predicates.cu"}
 
 # csrc/constrained.cu's Field enum of the one-CTA design (with the kPlace
 # mode's `active` row), in order
@@ -75,18 +82,22 @@ CON_FIELDS_ONE_CTA = (
 def build_tree(tree: str, out_dir: str, rows, sources=None) -> dict:
     """{row: library} of the tree's kernels, compiled in parallel.
     `sources` maps a row to a source path to build instead (an instrumented
-    copy)."""
+    copy). A tree without row P's source gets None for it (its plane was
+    the plain version)."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import build
 
     csrc = os.path.join(tree, "kubernetes_autoscaler_tpu_torch", "csrc")
     procs = {}
+    libs = {}
     for row in rows:
         src = (sources or {}).get(row) or os.path.join(csrc, SOURCES[row])
+        if row == "P" and not os.path.exists(src):
+            libs[row] = None
+            continue
         lib = os.path.join(out_dir, f"{row}.so")
         procs[row] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
     for row, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -317,6 +328,69 @@ def hist_launcher(lib):
     return launch
 
 
+def pred_launcher(lib):
+    """Row P's plane (nodes, specs, checks, bits, group_mask) through `lib`;
+    with no library (a tree before row P), this checkout's plain version on
+    the card."""
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    if lib is None:
+        return lambda *args: (pk.plane_plain(*args),)
+    fn = lib.ka_pred_plane
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(nodes, specs, checks, bits, group_mask):
+        d, dev = pk.check_inputs(nodes, specs, checks, bits, group_mask)
+        out = torch.empty((d["G"], d["N"]),
+                          dtype=torch.uint16 if bits else torch.bool,
+                          device=dev)
+        fields = {i for c, idx in pk.READS.items() if checks & c for i in idx}
+        ptrs = [getattr(nodes if owner == "nodes" else specs, name).data_ptr()
+                if i in fields else None
+                for i, (owner, name, _, _) in enumerate(pk.FIELDS)]
+        ptrs += [None if group_mask is None else group_mask.data_ptr(),
+                 out.data_ptr()]
+        dims = [d[k] for k in pk.DIMS]
+        rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+                (ctypes.c_int * len(dims))(*dims), checks, int(bits),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"row P launch failed: CUDA error {rc}")
+        return (out,)
+    return launch
+
+
+def pred_inputs() -> dict:
+    """{name: ("P", plane args, (plain plane,))} of every distinct plane
+    call of one [main] step and one [constrained] step."""
+    from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
+    from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
+
+    out, seen = {}, set()
+    dims = Dims()
+    enc, groups = cs.build_world(cs.NODES, cs.PODS, cs.POD_GROUPS,
+                                 cs.NODEGROUPS, cs.RESIDENTS_PER_NODE,
+                                 cs.DEVICE)
+    worlds = (("[main]", cs.main_step(enc, groups, dims)[1]),
+              ("[constrained]", cs.constrained_world(dims)[2]))
+    for tag, step in worlds:
+        step()
+        for i, args in enumerate(cs.record_pred_calls(step)):
+            d, _ = pk.check_inputs(*args)
+            key = (args[2], args[3], d["G"], d["N"])
+            if key in seen:
+                continue
+            seen.add(key)
+            kind = {pk.STATIC: "static", pk.SELECTOR: "selector"}.get(
+                args[2], f"checks {args[2]}")
+            out[f"P {tag} call {i} {kind} G={d['G']} N={d['N']}"] = (
+                "P", args, (pk.plane_plain(*args),))
+    return out
+
+
 def con_inputs():
     """Row C's and row D's topology inputs from one step of the constrained
     world: ({name: pack_lanes args}, (SweepInputs, TopoInputs, K))."""
@@ -351,6 +425,8 @@ def inputs(rows):
         return "K1", bits, pack_kernel.pack_groups_batched_plain(*a)
 
     out = {}
+    if "P" in rows:
+        out.update(pred_inputs())
     if "S" in rows:
         from kubernetes_autoscaler_tpu_torch.ops.kernels import (
             hist_cases,
@@ -435,7 +511,7 @@ def flat(row, res):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", default="K1,K2,C,D,S",
+    ap.add_argument("--rows", default="K1,K2,C,D,S,P",
                     help="comma-separated rows to build and time")
     ap.add_argument("trees", nargs="+")
     a = ap.parse_args()
@@ -455,7 +531,8 @@ def main() -> int:
             os.makedirs(out_dir)
             libs = build_tree(tree, out_dir, rows)
             make = {"K1": k1_launcher, "K2": k2_launcher, "C": con_launcher,
-                    "D": drain_launcher, "S": hist_launcher}
+                    "D": drain_launcher, "S": hist_launcher,
+                    "P": pred_launcher}
             launchers[tree] = {row: make[row](lib) for row, lib in libs.items()}
         cases = inputs(rows)
         torch.cuda.synchronize()
@@ -480,7 +557,7 @@ def main() -> int:
                                                  f"version")
                     times[name] = cs.cuda_ms(lambda fn=fn, args=args: fn(*args),
                                              cs.REPS, hold=True)
-                    if row == "S":
+                    if row in ("S", "P"):
                         launched[name] = cs.cuda_ms(
                             lambda fn=fn, args=args: fn(*args), cs.REPS)
                 line = {"tree": tree, "round": rnd, "device_ms": times}
