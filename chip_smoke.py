@@ -1180,11 +1180,10 @@ class plain_plane:
 
         self.pk, self.real = predicate_kernel, predicate_kernel.plane
 
-        def plane(nodes, specs, checks, bits=False, group_mask=None):
-            predicate_kernel.check_inputs(nodes, specs, checks, bits,
-                                          group_mask)
-            return predicate_kernel.plane_plain(nodes, specs, checks, bits,
-                                                group_mask)
+        def plane(*a, **kw):
+            args = predicate_kernel.bind_args(*a, **kw)
+            predicate_kernel.check_inputs(*args)
+            return predicate_kernel.plane_plain(*args)
 
         predicate_kernel.plane = plane
         return self
@@ -1195,8 +1194,9 @@ class plain_plane:
 
 def check_pred(name, args) -> int:
     """Row P on one call's arguments (nodes, specs, checks, bits,
-    group_mask) against its plain version on the card, byte for byte, one
-    launch; returns the max abs difference."""
+    group_mask, scheduled) against its plain version on the card (the
+    resident term through `resident_group_counts` where `scheduled` is
+    given), byte for byte, one call; returns the max abs difference."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
     before = pk.launch.launches
@@ -1222,10 +1222,11 @@ def pred_ops(args) -> tuple[int, int]:
     tolerations of a group that does not tolerate all, 2R for resources
     (a subtraction and a compare a slot) and 2 for the gates, on every
     (g, n); the reference compares every slot with every probe slot, zero
-    or not."""
+    or not. The resident term: 4 compares a pod (valid, two index
+    bounds, the group's flag) and one a pair."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
-    nodes, specs, checks, bits, mask = args
+    nodes, specs, checks, bits, mask, scheduled = args
     d, _ = pk.check_inputs(*args)
     g, n = d["G"], d["N"]
     need = ref = 0
@@ -1246,16 +1247,21 @@ def pred_ops(args) -> tuple[int, int]:
     if checks & pk.GATES:
         need += 2 * g * n
         ref += 2 * g * n
+    if scheduled is not None:
+        need += 4 * d["P"] + g * n
+        ref += 4 * d["P"] + g * n
     return need, ref
 
 
 def pred_bound(args) -> tuple[float, str, int, int]:
     """(bound ms, 'bytes'|'operations', compares needed, the reference's) of
     one plane on these inputs: each plane the checks read once, the group
-    mask once, the output written once; the compares of `pred_ops`."""
+    mask and the resident pods' valid, node_idx, group_ref and the groups'
+    anti_affinity_self once, the output written once; the compares of
+    `pred_ops`."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
-    nodes, specs, checks, bits, mask = args
+    nodes, specs, checks, bits, mask, scheduled = args
     d, _ = pk.check_inputs(*args)
     in_bytes = sum(
         getattr(nodes if owner == "nodes" else specs, name).numel()
@@ -1263,6 +1269,10 @@ def pred_bound(args) -> tuple[float, str, int, int]:
         for i, (owner, name, _, _) in enumerate(pk.FIELDS)
         if any(checks & c and i in idx for c, idx in pk.READS.items()))
     in_bytes += 0 if mask is None else mask.numel()
+    if scheduled is not None:
+        in_bytes += sum(t.numel() * t.element_size() for t in (
+            scheduled.valid, scheduled.node_idx, scheduled.group_ref,
+            specs.anti_affinity_self))
     out_bytes = d["G"] * d["N"] * (2 if bits else 1)
     need, ref = pred_ops(args)
     t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
@@ -1284,8 +1294,11 @@ def pred_times(name, args, card) -> dict:
          "bound": bound, "bound_by": bound_by, "ops_needed": need,
          "ops_reference": ref}
     d, _ = pk.check_inputs(*args)
+    t.update(G=d["G"], N=d["N"], P=None if args[5] is None else d["P"])
     log(f"[predicates] {name} (G={d['G']} N={d['N']} checks={args[2]} "
-        f"{'uint16 bits' if args[3] else 'bool'}): kernel {t['kernel']} ms "
+        f"{'uint16 bits' if args[3] else 'bool'}"
+        f"{'' if args[5] is None else ', P=%d residents' % d['P']}): "
+        f"kernel {t['kernel']} ms "
         f"device time, {t['launch']} ms as launched from Python; plain "
         f"{t['plain']} ms on the card; bound {bound} ms ({bound_by}; "
         f"{need} compares these inputs need, {ref} in the reference's "
@@ -1295,15 +1308,15 @@ def pred_times(name, args, card) -> dict:
 
 def record_pred_calls(step) -> list:
     """One step with row P's wrapper recording its arguments: [(nodes,
-    specs, checks, bits, group_mask)] in call order."""
+    specs, checks, bits, group_mask, scheduled)] in call order."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
 
     got = []
     real = predicate_kernel.plane
 
-    def plane(nodes, specs, checks, bits=False, group_mask=None):
-        got.append((nodes, specs, checks, bits, group_mask))
-        return real(nodes, specs, checks, bits, group_mask)
+    def plane(*a, **kw):
+        got.append(predicate_kernel.bind_args(*a, **kw))
+        return real(*a, **kw)
 
     predicate_kernel.plane = plane
     try:
@@ -1335,9 +1348,17 @@ def pred_phase(card, tag, step, calls_per_step) -> tuple[dict, int]:
             args[2], f"checks {args[2]}")
         name = f"{tag} call {i} {kind}"
         err = max(err, check_pred(name, args))
-        shapes.setdefault((args[2], args[3], d["G"], d["N"]), (name, args))
-    log(f"[predicates] {tag}: {len(calls)} plane calls a step, each "
-        f"byte-equal to the plain version on the card ({card})")
+        shapes.setdefault((args[2], args[3], d["G"], d["N"],
+                           args[5] is not None), (name, args))
+    resident = sum(a[5] is not None for a in calls)
+    selector = sum(a[2] == pk.SELECTOR for a in calls)
+    if resident != 2:
+        raise AssertionError(f"{tag}: {resident} plane calls with the "
+                             f"resident term, expected 2 (the filter's and "
+                             f"the drain's)")
+    log(f"[predicates] {tag}: {len(calls)} plane calls a step ({resident} "
+        f"with the resident term), each byte-equal to the plain version on "
+        f"the card ({card})")
     times = {key: (name, pred_times(name, args, card))
              for key, (name, args) in shapes.items()}
     del calls, shapes
@@ -1364,14 +1385,15 @@ def pred_phase(card, tag, step, calls_per_step) -> tuple[dict, int]:
         f"{pct(ab['plain'], 90)} ms, {k_plain} device kernels a step, "
         f"{busy_plain} ms of kernel time ({PRED_AB_STEPS} steps each, "
         f"alternating) ({card})")
-    entry = {"kernels_per_step": k_kernel, "plain_kernels_per_step": k_plain,
+    entry = {"calls_per_step": calls_per_step, "selector_calls": selector,
+             "kernels_per_step": k_kernel, "plain_kernels_per_step": k_plain,
              "kernel_ms_per_step": busy_kernel,
              "plain_kernel_ms_per_step": busy_plain,
              "step_p50_ms": pct(ab["kernel"], 50),
              "plain_step_p50_ms": pct(ab["plain"], 50),
              "shapes": {name: {k: t[k] for k in (
                  "launch", "kernel", "plain", "bound", "bound_by",
-                 "ops_needed")} for name, t in times.values()}}
+                 "ops_needed", "G", "N", "P")} for name, t in times.values()}}
     return entry, err
 
 
@@ -1399,13 +1421,19 @@ def pred_json(launches, err, main, con) -> dict:
         "selector_ms": sel["launch"], "selector_device_ms": sel["kernel"],
         "selector_plain_ms": sel["plain"], "selector_bound_ms": sel["bound"],
         "constrained_launches": con["launches"],
-        "shapes": "[main]'s run_once_fused: 3 planes a step (the filter's and "
-                  "the drain's G=64 x N=5120, the templates' G=64 x NG=24; "
-                  "ms, device_ms, plain_ms, bound_ms at the filter's, "
-                  "templates_* at the templates'); [constrained]'s: 7 a step "
-                  "(4 of them selector planes; selector_* at N=5120); XLA's "
+        "shapes": f"[main]'s run_once_fused: {main['calls_per_step']} "
+                  f"planes a step (the filter's "
+                  f"and the drain's G={f['G']} x N={f['N']} with the "
+                  f"resident self-anti-affinity term, P={f['P']} pods, "
+                  f"inside the call; the templates' G={t['G']} x "
+                  f"NG={t['N']}; ms, device_ms, plain_ms, bound_ms at the "
+                  f"filter's, templates_* at the templates'); "
+                  f"[constrained]'s: {con['calls_per_step']} a step "
+                  f"({con['selector_calls']} of them selector planes; "
+                  f"selector_* at G={sel['G']} x N={sel['N']}); XLA's "
                   "fusion of ops/predicates.py, no Pallas kernel; plain_ms: "
-                  "the plain version on the card (≈ 570 launches a plane); "
+                  "the plain version on the card (*_plain_kernels_per_step: "
+                  "the step's kernels with it); "
                   "library_ms: no single PyTorch call computes the plane",
     }
     for side, e in (("main", main), ("constrained", con)):
@@ -5270,8 +5298,16 @@ def main() -> int:
         for func in pred_cases.FUNCTIONS:
             pred_err = max(pred_err, check_pred(
                 f"case {name} {func}", pred_cases.plane_args(func, case)))
+        for checks in (predicate_kernel.STATIC, predicate_kernel.ALL_CHECKS):
+            for mask in (None, case.group_mask):
+                pred_err = max(pred_err, check_pred(
+                    f"case {name} residents checks={checks}"
+                    f"{'' if mask is None else ' masked'}",
+                    (case.nodes, case.specs, checks, False, mask,
+                     case.scheduled)))
     log(f"[kernels] predicate plane == plain: {len(pred_cases.CASES)} cases x "
-        f"{len(pred_cases.FUNCTIONS)} functions")
+        f"({len(pred_cases.FUNCTIONS)} functions + the resident term with "
+        f"2 check sets, with and without the group mask)")
 
     dims = Dims()
     # 4. the fused main path at full size; the drain kernel on its sweep

@@ -10,9 +10,11 @@ simulate_removals). Every candidate node is simulated independently:
      slots took,
   3. per-pod destinations are read from the groups' cumulative placements.
 
-`sweep_inputs` is the placement-independent preparation, in plain torch;
-steps 1-3 are the drain kernel (ops/kernels/drain_kernel.sweep): on the
-card one launch for every candidate (`csrc/drain.cu`), on the CPU its plain
+`sweep_inputs` is the placement-independent preparation: the predicate
+plane with the resident self-anti-affinity term (row P,
+ops/kernels/predicate_kernel.plane), the rest in plain torch; steps 1-3
+are the drain kernel (ops/kernels/drain_kernel.sweep): on the card one
+launch for every candidate (`csrc/drain.cu`), on the CPU its plain
 version, in chunks of candidates.
 
 With `with_constraints` the re-placement is topology-aware: host-level
@@ -62,8 +64,7 @@ from kubernetes_autoscaler_tpu_torch.ops.kernels.drain_kernel import (
     TopoInputs,
     default_chunk,
 )
-from kubernetes_autoscaler_tpu_torch.ops.predicates import feasibility_mask
-from kubernetes_autoscaler_tpu_torch.ops.schedule import resident_group_counts
+from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
 
 # the reference package's names of the per-candidate drain failure reasons
 # (the scale-down reason plane); the codes are drain_kernel's
@@ -151,18 +152,18 @@ def sweep_inputs(nodes: NodeTensors, specs: PodGroupTensors,
                  scheduled: ScheduledPodTensors, candidates: torch.Tensor,
                  dest_allowed: torch.Tensor, max_pods_per_node: int,
                  host_gate: torch.Tensor | None = None) -> SweepInputs:
-    """The placement-independent preparation of the sweep, in plain torch:
-    the predicate plane (with the topology's `host_gate`, bool[G, N]), the
-    allowed destinations, and the resident pods sorted by node so that each
+    """The placement-independent preparation of the sweep: the predicate
+    plane with the resident self-anti-affinity term (one call of row P;
+    then the topology's `host_gate`, bool[G, N]) and, in plain torch, the
+    allowed destinations and the resident pods sorted by node so that each
     candidate's pods are one window of `pad_order`."""
     n = nodes.n
     mpn = max_pods_per_node
     dev = nodes.cap.device
     i32 = torch.int32
 
-    feas_gn = feasibility_mask(nodes, specs, check_resources=False)
-    resident = resident_group_counts(scheduled, specs.g, n)
-    feas_gn = feas_gn & ~(specs.anti_affinity_self[:, None] & (resident > 0))
+    feas_gn = predicate_kernel.plane(nodes, specs, predicate_kernel.STATIC,
+                                     scheduled=scheduled)
     if host_gate is not None:
         feas_gn = feas_gn & host_gate
     dest_ok = dest_allowed & nodes.valid & nodes.ready & nodes.schedulable

@@ -17,7 +17,18 @@ groups that tolerate everything on nodes tainted everywhere, invalid groups
 and unavailable nodes, a `cap - alloc` that wraps past int32, template rows
 (NG = 5: no allocation, no used port, ready and schedulable), the default
 `Dims()` widths past one tile of nodes and one chunk of groups ("wide", N =
-1,031, G = 37) and every width 1 ("narrow", R = 4: no extended resource).
+1,031, G = 37), every width 1 ("narrow", R = 4: no extended resource) and
+widths past the kernel's register fast paths ("many_slots").
+
+Every world also has resident pods (`Case.scheduled`) and self-anti-affine
+groups (`specs.anti_affinity_self`) for the resident term that the filter
+and the drain's preparation AND into the static plane: three pods a node on
+average, some invalid, some with node_idx -1, some on unavailable nodes,
+several pods of a group on one node, and a few rows outside the plane (a
+group row of -1 or -G, which the reference reads from the end, and a group
+row or node index past the plane, which it drops). "residents" and
+"residents_wide" (the "wide" widths, G = 37 across two resident words) make
+them dense.
 
 `FUNCTIONS` names the public tensor functions of `ops/predicates.py` (and
 their `check_resources` variants); `public` calls one through either
@@ -37,6 +48,7 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     Dims,
     NodeTensors,
     PodGroupTensors,
+    ScheduledPodTensors,
 )
 from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
@@ -58,13 +70,15 @@ class Case:
     nodes: NodeTensors
     specs: PodGroupTensors
     group_mask: torch.Tensor     # bool[G]
+    scheduled: ScheduledPodTensors   # the resident pods
 
     def to(self, device) -> "Case":
         def mv(tree):
             return type(tree)(**{k: None if v is None else v.to(device)
                                  for k, v in vars(tree).items()})
 
-        return Case(mv(self.nodes), mv(self.specs), self.group_mask.to(device))
+        return Case(mv(self.nodes), mv(self.specs), self.group_mask.to(device),
+                    mv(self.scheduled))
 
 
 def _t(x, dtype):
@@ -91,6 +105,8 @@ class _World:
     gvalid: np.ndarray     # [G]
     req: np.ndarray        # [G, R]
     mask: np.ndarray       # [G] the group mask
+    anti: np.ndarray       # [G] anti_affinity_self
+    res: np.ndarray        # [3, P] resident valid, node_idx, group_ref
 
     def case(self) -> Case:
         i32, b8 = torch.int32, torch.bool
@@ -108,22 +124,51 @@ class _World:
             sel_req=_t(self.sel, i32), sel_neg=_t(self.neg, i32),
             tol_exact=_t(self.tex, i32), tol_key=_t(self.tky, i32),
             tolerate_all=_t(self.tol_all, b8), port_hash=_t(self.gports, i32),
-            anti_affinity_self=_t(np.zeros(g, bool), b8),
+            anti_affinity_self=_t(self.anti, b8),
             valid=_t(self.gvalid, b8),
             needs_host_check=_t(np.zeros(g, bool), b8))
-        return Case(nodes, specs, _t(self.mask, b8))
+        p = self.res.shape[1]
+        scheduled = ScheduledPodTensors(
+            req=_t(np.ones((p, self.cap.shape[1]), np.int32), i32),
+            node_idx=_t(self.res[1], i32), group_ref=_t(self.res[2], i32),
+            movable=_t(np.ones(p, bool), b8), blocks=_t(np.zeros(p, bool), b8),
+            valid=_t(self.res[0] != 0, b8))
+        return Case(nodes, specs, _t(self.mask, b8), scheduled)
+
+
+def _residents(rng, n: int, g: int, per_node: float) -> np.ndarray:
+    """[3, P] (valid, node_idx, group_ref) of about `per_node` pods a node:
+    85 % valid, 5 % with node_idx -1, a fifth of them a copy of an earlier
+    pod (several pods of a group on one node), and about 2 % outside the
+    plane (group_ref -1, -g, -g - 1, g, or node_idx n)."""
+    p = max(int(per_node * n), 1)
+    valid = rng.random(p) < 0.85
+    node = rng.integers(0, n, p)
+    node[rng.random(p) < 0.05] = -1
+    grp = rng.integers(0, g, p)
+    dup = np.flatnonzero(rng.random(p) < 0.2)
+    src = rng.integers(0, p, dup.size)
+    node[dup], grp[dup] = node[src], grp[src]
+    edge = np.flatnonzero(rng.random(p) < 0.02)
+    for k, i in enumerate(edge):
+        if k % 5 == 4:
+            node[i] = n
+        else:
+            grp[i] = (-1, -g, -g - 1, g)[k % 5]
+    return np.stack([valid.astype(np.int64), node, grp]).astype(np.int32)
 
 
 def _world(seed: int, n: int = N, g: int = G, r: int = R,
            widths: dict | None = None, vocab: int = 8,
-           zero: float = 0.4) -> _World:
+           zero: float = 0.4, residents: float = 3.0) -> _World:
     """A random world: every hash from a vocabulary of `vocab` non-zero
     int32 values (INT32_MIN and -1 among them), a share `zero` of the
     label and toleration slots 0 (more of the taint, selector and port
     slots); capacities, allocations and requests such that a request
     sometimes exceeds the free capacity, which is sometimes negative;
     90 % of nodes and groups available and valid, 20 % of groups
-    tolerating everything, 60 % of groups in the mask."""
+    tolerating everything, 60 % of groups in the mask; `residents` resident
+    pods a node on average (`_residents`), 40 % of groups self-anti-affine."""
     w = {**WIDTHS, **(widths or {})}
     rng = np.random.default_rng(seed)
     pool = rng.integers(INT32_MIN, INT32_MAX, size=vocab, dtype=np.int64)
@@ -147,7 +192,8 @@ def _world(seed: int, n: int = N, g: int = G, r: int = R,
         tol_all=rng.random(g) < 0.2, gports=hashes((g, w["PP"]), 0.7),
         gvalid=rng.random(g) < 0.9,
         req=rng.integers(0, 16, (g, r)).astype(np.int32),
-        mask=rng.random(g) < 0.6)
+        mask=rng.random(g) < 0.6, anti=rng.random(g) < 0.4,
+        res=_residents(rng, n, g, residents))
 
 
 def world(seed: int, n: int, g: int, dims: Dims = Dims(),
@@ -155,6 +201,27 @@ def world(seed: int, n: int, g: int, dims: Dims = Dims(),
     """A random world at these widths (the main path's: `Dims()`, R = 8),
     with a vocabulary of 64 hashes."""
     return _world(seed, n, g, r, dims_widths(dims), vocab=64).case()
+
+
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of t that starts k elements into a larger buffer."""
+    buf = torch.zeros(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def shifted(case: Case, k: int) -> Case:
+    """The same case with every plane a contiguous view that starts k
+    elements into a larger buffer, so that no slice of it starts on a
+    16-byte boundary (the kernel's bulk copies then leave edges to plain
+    loads)."""
+    def mv(tree):
+        return type(tree)(**{name: None if t is None else _offset(t, k)
+                             for name, t in vars(tree).items()})
+
+    return Case(mv(case.nodes), mv(case.specs), _offset(case.group_mask, k),
+                mv(case.scheduled))
 
 
 def _collisions() -> Case:
@@ -227,6 +294,40 @@ def _narrow() -> Case:
     return _world(8, r=4, widths=dict.fromkeys(WIDTHS, 1), vocab=3).case()
 
 
+def _many_slots() -> Case:
+    """Widths past the kernel's fast paths: more than 64 label and port
+    slots a node, more than 8 taint slots (two words of taint bits a
+    node), more than 32 entries in a group's probe row and in its
+    tolerations, more than 32 alternatives a term."""
+    w = _world(11, n=70, g=40, r=5,
+               widths={"L": 100, "T": 40, "NP": 70, "S": 2, "A": 40,
+                       "Sn": 36, "Tl": 40, "PP": 36}, vocab=30)
+    w.te[:, :30] = 0              # most nodes keep a few active taints
+    w.te[::7, 35] = w.tex[3, 0] or 5
+    w.sel[:, :, :34] = 0          # the probes sit past entry 32 of a row
+    w.neg[:, :33] = 0
+    w.gports[:, :34] = 0
+    w.ports[:, 3:60] = 0
+    return w.case()
+
+
+def _residents_dense() -> Case:
+    """Most groups self-anti-affine, six resident pods a node."""
+    w = _world(9, residents=6.0)
+    w.anti[:] = True
+    w.anti[::4] = False
+    return w.case()
+
+
+def _residents_wide() -> Case:
+    """The "wide" widths (G = 37: two resident words, the second partial)
+    with every group self-anti-affine and residents on every node."""
+    w = _world(10, n=1031, g=37, r=8, widths=dims_widths(Dims()), vocab=40,
+               residents=4.0)
+    w.anti[:] = True
+    return w.case()
+
+
 CASES = {
     "random": lambda: _world(0).case(),
     "collisions": _collisions,
@@ -237,6 +338,9 @@ CASES = {
     "templates": _templates,
     "wide": _wide,
     "narrow": _narrow,
+    "many_slots": _many_slots,
+    "residents": _residents_dense,
+    "residents_wide": _residents_wide,
 }
 
 # the public tensor functions of ops/predicates.py: (name, check_resources)

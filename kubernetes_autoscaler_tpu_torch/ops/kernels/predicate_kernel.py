@@ -10,29 +10,36 @@ fuses its loops over the static padding dims into a few loops. Run eagerly,
 as the plain version below runs it, every step of those loops is one or
 more launches over [G, N] or [G, N, K]: ≈ 570 at the default `Dims()` for
 one `feasibility_mask(check_resources=False)`. The kernel,
-`csrc/predicates.cu`, computes the same plane in one launch; its header
-says what bounds it and how its design answers that.
+`csrc/predicates.cu`, computes the same plane in one launch (with the
+resident term, one call of its C entry: a memset, a pre-pass and the
+plane); its header says what bounds it and how its design answers that.
 
-`plane(nodes, specs, checks, bits, group_mask)` is the one entry that every
-public function of `ops/predicates.py` calls. `nodes` is anything with the
-node planes the checks read (a `NodeTensors`, or a `NodePlanes` holding only
-those), `specs` anything with the group planes they read (a
+`plane(nodes, specs, checks, bits, group_mask, scheduled)` is the one entry
+that every public function of `ops/predicates.py` calls. `nodes` is anything
+with the node planes the checks read (a `NodeTensors`, or a `NodePlanes`
+holding only those), `specs` anything with the group planes they read (a
 `PodGroupTensors`). `checks` is a bitmask of SELECTOR, TAINTS, PORTS,
 RESOURCES and GATES (node valid & ready & schedulable, and the group's
 valid flag). The output is bool[G, N], True where no check refuses the pair,
 or with `bits` the uint16[G, N] refusal bits of `REASON_*`. Rows whose
-`group_mask` entry is False are written 0 in either kind.
+`group_mask` entry is False are written 0 in either kind. In the bool kind,
+`scheduled` (the resident pods: `valid`, `node_idx`, `group_ref`) also
+refuses a self-anti-affine group (`specs.anti_affinity_self`) on a node
+where a pod of it runs: the term `filter_pack_inputs` and the drain's
+preparation AND into their plane (`resident_group_counts` in the plain
+version).
 
 The device of the tensors decides: CPU tensors go through `plane_plain`,
-CUDA tensors through the kernel (one launch, nothing read back to the
-host), and an input the kernel does not take raises, on either device.
-There is no fallback from the kernel to the plain version.
+CUDA tensors through the kernel (one call of its C entry, nothing read
+back to the host), and an input the kernel does not take raises, on either
+device. There is no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import inspect
 from dataclasses import dataclass
 
 import torch
@@ -91,11 +98,21 @@ FIELDS = (
 # the planes each check reads, as indices into FIELDS
 READS = {SELECTOR: (0, 9, 10), TAINTS: (1, 2, 11, 12, 13), PORTS: (3, 14),
          RESOURCES: (7, 8, 16), GATES: (4, 5, 6, 15)}
+# the Field enum goes on with the group mask and the output, then the
+# resident inputs, then the word plane the pre-pass fills
+RESIDENT_FIELDS = (
+    ("scheduled", "valid", torch.bool, ("P",)),
+    ("scheduled", "node_idx", I32, ("P",)),
+    ("scheduled", "group_ref", I32, ("P",)),
+    ("specs", "anti_affinity_self", torch.bool, ("G",)),
+)
+GROUP_MASK, OUT, WORDS = len(FIELDS), len(FIELDS) + 1, len(FIELDS) + 6
+NUM_FIELDS = WORDS + 1
 # csrc/predicates.cu's Dim enum, in order
-DIMS = ("N", "G", "L", "T", "NP", "R", "S", "A", "Sn", "Tl", "PP")
-# csrc/predicates.cu's kTile (nodes a CTA) and kGroups (groups a CTA), and
-# the shared memory a CTA may take on this card
-TILE, GROUPS = 128, 8
+DIMS = ("N", "G", "L", "T", "NP", "R", "S", "A", "Sn", "Tl", "PP", "P")
+# csrc/predicates.cu's kTile (nodes a CTA) and kMaxChunk (groups a chunk at
+# most), and the shared memory a CTA may take on this card
+TILE, MAX_CHUNK = 32, 64
 MAX_SMEM = 227 * 1024
 
 
@@ -223,11 +240,33 @@ def _reason_bits(nodes, specs, checks: int) -> torch.Tensor:
     return bits
 
 
+def resident_group_counts(scheduled, g: int, n: int) -> torch.Tensor:
+    """i32[G, N]: resident pods of each equivalence group on each node
+    (feeds self-anti-affinity masking). The indices are read as the
+    reference's `.at[gr, ni].add` reads them: a negative group row counts
+    from the end once, and a row or node still outside the plane is
+    dropped."""
+    ok = scheduled.valid & (scheduled.node_idx >= 0)
+    gr = torch.where(ok, scheduled.group_ref, 0).long()
+    ni = torch.where(ok, scheduled.node_idx, 0).long()
+    gr = torch.where(gr < 0, gr + g, gr)
+    keep = ok & (gr >= 0) & (gr < g) & (ni < n)
+    out = torch.zeros((g, n), dtype=torch.int32, device=ok.device)
+    if g == 0 or n == 0:
+        return out
+    return out.index_put_((torch.where(keep, gr, 0), torch.where(keep, ni, 0)),
+                          keep.to(torch.int32), accumulate=True)
+
+
 def plane_plain(nodes, specs, checks: int, bits: bool = False,
-                group_mask: torch.Tensor | None = None) -> torch.Tensor:
+                group_mask: torch.Tensor | None = None,
+                scheduled=None) -> torch.Tensor:
     """The plain version of `plane`, on either device: the reference's
     eager formulation (`feasibility_mask` ANDs the checks' planes,
-    `reason_mask` ORs their bits in int32 and casts to uint16)."""
+    `reason_mask` ORs their bits in int32 and casts to uint16; its callers
+    AND `~(anti_affinity_self & resident_group_counts > 0)`)."""
+    if bits and scheduled is not None:
+        raise ValueError("the reason kind takes no resident pods")
     if bits:
         out = _reason_bits(nodes, specs, checks)
         if group_mask is not None:
@@ -251,6 +290,10 @@ def plane_plain(nodes, specs, checks: int, bits: bool = False,
         mask = mask & p
     if group_mask is not None:
         mask = mask & group_mask[:, None]
+    if scheduled is not None:
+        g, n = mask.shape
+        resident = resident_group_counts(scheduled, g, n)
+        mask = mask & ~(specs.anti_affinity_self[:, None] & (resident > 0))
     return mask
 
 
@@ -263,77 +306,152 @@ def _read(checks: int) -> list[int]:
                    for i in idx})
 
 
-def _dims(nodes, specs, fields: list[int]) -> dict[str, int]:
-    """The widths of DIMS from the shapes of the planes read (0 where no
-    plane read has it); a plane's rank must be its widths'."""
-    d = dict.fromkeys(DIMS, 0)
-    for i in fields:
-        owner, name, _, widths = FIELDS[i]
-        t = getattr(nodes if owner == "nodes" else specs, name)
-        if t.dim() != len(widths):
-            raise ValueError(f"{owner}.{name} has shape {tuple(t.shape)}, "
-                             f"expected {len(widths)} dims {widths}")
-        for k, w in zip(widths, t.shape):
-            d[k] = d[k] or w
-    return d
+@functools.cache
+def _plan(checks: int) -> tuple:
+    """(index, of nodes, name, dtype, widths) of each plane `checks` read,
+    in FIELDS order (the order that names each width first)."""
+    return tuple((i, FIELDS[i][0] == "nodes", *FIELDS[i][1:])
+                 for i in _read(checks))
 
 
-def smem_bytes(d: dict, checks: int) -> int:
-    """The dynamic shared memory a CTA of the kernel takes
-    (csrc/predicates.cu's `layout`) at the widths `_dims` gives (0 for a
-    check that is off): a node row of the checks' slots at an odd word
-    stride, a node, and a group row of the checks' probes and a flags word,
-    a group."""
-    node = d["L"] + 2 * d["T"] + d["NP"] + d["R"]
-    group = 1 + d["S"] * d["A"] + d["Sn"] + 2 * d["Tl"] + d["PP"] + d["R"]
-    return (TILE * (node | 1 if node else 0) + GROUPS * group) * 4
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
 
 
-def check_inputs(nodes, specs, checks: int, bits: bool = False,
-                 group_mask: torch.Tensor | None = None
-                 ) -> tuple[dict, torch.device]:
-    """The kernel's input contract, checked on either device: known checks,
-    the planes they read present with the right dtype and shape, on one
-    device, contiguous; the reason kind with resources needs the four
-    standard slots; the widths within the kernel's shared memory. Returns
-    (widths, device)."""
+def _region(nbytes: int) -> int:
+    return _a16(nbytes) + 16
+
+
+def _layout_bytes(d: dict, checks: int, resident: bool, chunk: int) -> int:
+    """csrc/predicates.cu's `layout(...).smem` for one chunk size."""
+    sel, tai, por, res = (bool(checks & c)
+                          for c in (SELECTOR, TAINTS, PORTS, RESOURCES))
+    probes = d["S"] * d["A"] + d["Sn"]
+    us = chunk * probes if sel else 0
+    up = chunk * d["PP"] if por else 0
+    ws, wp = ((us + 31) // 32) | 1, ((up + 31) // 32) | 1
+    t4, c4 = TILE * 4, chunk * 4
+    return sum((
+        16,                                                     # mbarriers
+        _region(t4 * d["L"]) if sel else 0,
+        2 * _region(t4 * d["T"]) if tai else 0,
+        _region(t4 * d["NP"]) if por else 0,
+        2 * _region(t4 * d["R"]) + _a16(t4 * d["R"]) if res else 0,
+        _region(c4 * d["S"] * d["A"]) + _region(c4 * d["Sn"]) if sel else 0,
+        2 * _region(c4 * d["Tl"]) if tai else 0,
+        _region(c4 * d["PP"]) if por else 0,
+        _region(c4 * d["R"]) if res else 0,
+        2 * _a16(us * 4) + (_a16(t4 * ws) if sel else 0),       # probes, terms, hits
+        _a16(up * 4) + (_a16(t4 * wp) if por else 0),
+        _a16(4 * d["S"] * d["A"]) if sel else 0,                # terms of slots
+        _a16(4 * d["T"]) + _a16(c4 * d["T"]) if tai else 0,     # taint bits
+        _a16(((chunk + 31) // 32 + 1) * t4) if resident else 0,
+        _a16(c4 * 8) + 16,                                      # descriptors
+        t4))                                                    # node gates
+
+
+def smem_bytes(d: dict, checks: int, resident: bool = False) -> int:
+    """The dynamic shared memory a CTA of the kernel takes (csrc/
+    predicates.cu's `fit`) at the widths `check_inputs` gives (0 for a
+    check that is off): a tile of TILE nodes' slices, a chunk of groups'
+    rows, their compacted probe lists and the nodes' hit rows, at the
+    largest chunk (≤ MAX_CHUNK and ≤ G, halving) that fits MAX_SMEM, or
+    the one-group chunk's if none does."""
+    chunk = min(max(d["G"], 1), MAX_CHUNK)
+    need = _layout_bytes(d, checks, resident, chunk)
+    while need > MAX_SMEM and chunk > 1:
+        chunk = (chunk + 1) // 2
+        need = _layout_bytes(d, checks, resident, chunk)
+    return need
+
+
+def _contract(nodes, specs, checks: int, bits: bool, group_mask,
+              scheduled) -> tuple[dict, torch.device, list]:
+    """`check_inputs` in one pass over the planes read; also returns the
+    tensors in the kernel's Field order (None where it reads none)."""
     if not checks or checks & ~ALL_CHECKS:
         raise ValueError(f"checks={checks}: expected a non-empty subset of "
                          f"{ALL_CHECKS}")
-    fields = _read(checks)
-    for i in fields:
-        owner, name = FIELDS[i][:2]
-        if not isinstance(getattr(nodes if owner == "nodes" else specs, name,
-                                  None), torch.Tensor):
-            raise ValueError(f"{owner}.{name} is needed by checks={checks}")
-    d = _dims(nodes, specs, fields)
+    d = dict.fromkeys(DIMS, -1)      # -1: no plane has named the width yet
+    ts: list = [None] * NUM_FIELDS
     dev = None
-    for i in fields:
-        owner, name, dtype, widths = FIELDS[i]
-        t = getattr(nodes if owner == "nodes" else specs, name)
-        dev = t.device if dev is None else dev
-        _check(f"{owner}.{name}", t, dtype, tuple(d[k] for k in widths), dev)
+    for i, of_nodes, name, dtype, widths in _plan(checks):
+        t = getattr(nodes if of_nodes else specs, name, None)
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{'nodes' if of_nodes else 'specs'}.{name} is "
+                             f"needed by checks={checks}")
+        dev = _check(("nodes" if of_nodes else "specs", name), t, dtype,
+                     widths, d, dev)
+        ts[i] = t
     if group_mask is not None:
-        _check("group_mask", group_mask, torch.bool, (d["G"],), dev)
+        _check(("group_mask", ""), group_mask, torch.bool, ("G",), d, dev)
+        ts[GROUP_MASK] = group_mask
+    if scheduled is not None:
+        if bits:
+            raise ValueError("the reason kind takes no resident pods")
+        for k, (owner, name, dtype, widths) in enumerate(RESIDENT_FIELDS):
+            t = getattr(scheduled if owner == "scheduled" else specs, name,
+                        None)
+            if not isinstance(t, torch.Tensor):
+                raise ValueError(f"{owner}.{name} is needed by the resident "
+                                 f"term")
+            _check((owner, name), t, dtype, widths, d, dev)
+            ts[OUT + 1 + k] = t
+    for k, w in d.items():
+        if w < 0:
+            d[k] = 0
     if bits and checks & RESOURCES and d["R"] < NUM_STANDARD:
         raise ValueError(f"the reason kind needs the {NUM_STANDARD} standard "
                          f"resource slots, got R={d['R']}")
-    if smem_bytes(d, checks) > MAX_SMEM:
-        raise ValueError(f"widths {d} take {smem_bytes(d, checks)} B of "
-                         f"shared memory a CTA, more than {MAX_SMEM}")
+    need = smem_bytes(d, checks, scheduled is not None)
+    if need > MAX_SMEM:
+        raise ValueError(f"widths {d} take {need} B of shared memory a CTA, "
+                         f"more than {MAX_SMEM}")
+    return d, dev, ts
+
+
+def check_inputs(nodes, specs, checks: int, bits: bool = False,
+                 group_mask: torch.Tensor | None = None, scheduled=None
+                 ) -> tuple[dict, torch.device]:
+    """The kernel's input contract, checked on either device: known checks,
+    the planes they read present with the right dtype and shape, on one
+    device, contiguous; the resident pods (valid, node_idx, group_ref [P];
+    specs.anti_affinity_self [G]) likewise, and only in the bool kind; the
+    reason kind with resources needs the four standard slots; the widths
+    within the kernel's shared memory. Returns (widths, device)."""
+    d, dev, _ = _contract(nodes, specs, checks, bits, group_mask, scheduled)
     return d, dev
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+def _check(label: tuple, t: torch.Tensor, dtype: torch.dtype, widths: tuple,
+           d: dict, device) -> torch.device:
+    """One plane, (owner, name) `label`: on `device` (the first plane's, when
+    None), of `dtype`, its shape the widths named so far (the first plane to
+    name a width sets it in `d`), contiguous. Returns the device."""
+    if device is None:
+        device = t.device
+    elif t.device != device:
+        raise ValueError(f"{_name(label)} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        raise TypeError(f"{_name(label)} has dtype {t.dtype}, expected {dtype}")
+    shape = t.shape
+    if len(shape) != len(widths):
+        raise ValueError(f"{_name(label)} has shape {tuple(shape)}, expected "
+                         f"{len(widths)} dims {widths}")
+    for k, w in zip(widths, shape):
+        have = d[k]
+        if have < 0:
+            d[k] = w
+        elif have != w:
+            raise ValueError(f"{_name(label)} has shape {tuple(shape)}, "
+                             f"expected {tuple(d[x] for x in widths)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise ValueError(f"{_name(label)} must be contiguous")
+    return device
+
+
+def _name(label: tuple) -> str:
+    return ".".join(x for x in label if x)
 
 
 # ---------------------------------------------------------------- kernel
@@ -352,20 +470,15 @@ def _entry():
     return fn
 
 
-def launch(nodes, specs, checks: int, bits: bool, group_mask, d: dict,
-           out: torch.Tensor) -> None:
-    """One launch on checked CUDA tensors, writing `out` (bool or uint16
-    [G, N], allocated by the caller). Counted in `launch.launches`."""
-    fields = set(_read(checks))
-    ptrs = [getattr(nodes if owner == "nodes" else specs, name).data_ptr()
-            if i in fields else None
-            for i, (owner, name, _, _) in enumerate(FIELDS)]
-    ptrs += [None if group_mask is None else group_mask.data_ptr(),
-             out.data_ptr()]
-    dims = [d[k] for k in DIMS]
-    rc = _entry()((ctypes.c_void_p * len(ptrs))(*ptrs),
-                  (ctypes.c_int * len(dims))(*dims), checks, int(bits),
-                  torch.cuda.current_stream(out.device).cuda_stream)
+def launch(d: dict, checks: int, bits: bool, tensors: list, stream: int
+           ) -> None:
+    """One call of the C entry on checked tensors in Field order (`tensors`
+    from `_contract`, with the output and, for residents, the word plane
+    filled in), enqueued on `stream`. Counted in `launch.launches`."""
+    ptrs = (ctypes.c_void_p * NUM_FIELDS)(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    dims = (ctypes.c_int * len(DIMS))(*[d[k] for k in DIMS])
+    rc = _entry()(ptrs, dims, checks, int(bits), stream)
     if rc != 0:
         raise RuntimeError(f"predicate plane launch failed: CUDA error {rc}")
     launch.launches += 1
@@ -375,19 +488,41 @@ launch.launches = 0
 
 
 def plane(nodes, specs, checks: int, bits: bool = False,
-          group_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """bool[G, N] (no check in `checks` refuses the pair) or, with `bits`,
-    uint16[G, N] refusal bits; rows outside `group_mask` are 0. CPU tensors
-    take the plain version, CUDA tensors the kernel: one launch, none when
-    G or N is 0."""
-    d, dev = check_inputs(nodes, specs, checks, bits, group_mask)
+          group_mask: torch.Tensor | None = None,
+          scheduled=None) -> torch.Tensor:
+    """bool[G, N] (no check in `checks` refuses the pair, nor, with the
+    resident pods `scheduled`, a resident sibling of a self-anti-affine
+    group) or, with `bits`, uint16[G, N] refusal bits; rows outside
+    `group_mask` are 0. CPU tensors take the plain version, CUDA tensors
+    the kernel: one call of its C entry, none when G or N is 0."""
+    d, dev, ts = _contract(nodes, specs, checks, bits, group_mask, scheduled)
     if dev.type == "cpu":
-        return plane_plain(nodes, specs, checks, bits, group_mask)
+        return plane_plain(nodes, specs, checks, bits, group_mask, scheduled)
     if dev.type != "cuda":
         raise ValueError(f"predicate plane: no kernel for {dev}")
     out = torch.empty((d["G"], d["N"]),
                       dtype=torch.uint16 if bits else torch.bool, device=dev)
     if d["G"] and d["N"]:
-        with torch.cuda.device(dev):
-            launch(nodes, specs, checks, bits, group_mask, d, out)
+        ts[OUT] = out
+        if scheduled is not None:
+            ts[WORDS] = torch.empty(((d["G"] + 31) // 32) * d["N"],
+                                    dtype=torch.int32, device=dev)
+        if dev.index == torch.cuda.current_device():
+            launch(d, checks, bits, ts, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                launch(d, checks, bits, ts,
+                       torch.cuda.current_stream().cuda_stream)
     return out
+
+
+_PLANE_PARAMS = inspect.signature(plane)
+
+
+def bind_args(*args, **kw) -> tuple:
+    """`plane`'s arguments as a caller gives them, in order with the
+    defaults filled in: (nodes, specs, checks, bits, group_mask, scheduled).
+    For code that wraps `plane` without copying its signature."""
+    bound = _PLANE_PARAMS.bind(*args, **kw)
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())

@@ -21,6 +21,11 @@ from kubernetes_autoscaler_tpu_torch.models.cluster_state import (
     ScheduledPodTensors,
 )
 from kubernetes_autoscaler_tpu_torch.ops import predicates
+from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel
+# the plain version's resident term, re-exported for this module's callers
+from kubernetes_autoscaler_tpu_torch.ops.kernels.predicate_kernel import (  # noqa: F401
+    resident_group_counts,
+)
 from kubernetes_autoscaler_tpu_torch.ops.pack import (
     PackResult,
     WavefrontCache,
@@ -33,25 +38,13 @@ from kubernetes_autoscaler_tpu_torch.ops.pack import (
 from kubernetes_autoscaler_tpu_torch.parallel.mesh import NODES_AXIS, axis_size
 
 
-def resident_group_counts(scheduled: ScheduledPodTensors, g: int,
-                          n: int) -> torch.Tensor:
-    """i32[G, N]: resident pods of each equivalence group on each node
-    (feeds self-anti-affinity masking)."""
-    ok = scheduled.valid & (scheduled.node_idx >= 0)
-    gr = torch.where(ok, scheduled.group_ref, 0).long()
-    ni = torch.where(ok, scheduled.node_idx, 0).long()
-    out = torch.zeros((g, n), dtype=torch.int32, device=ok.device)
-    return out.index_put_((gr, ni), ok.to(torch.int32), accumulate=True)
-
-
 def filter_pack_inputs(nodes: NodeTensors, specs: PodGroupTensors,
                        scheduled: ScheduledPodTensors | None = None):
     """The arguments `schedule_pending_on_existing` hands the pack:
-    (free, mask, req, count, order, limit_one)."""
-    mask = predicates.feasibility_mask(nodes, specs, check_resources=False)
-    if scheduled is not None:
-        resident = resident_group_counts(scheduled, specs.g, nodes.n)
-        mask = mask & ~(specs.anti_affinity_self[:, None] & (resident > 0))
+    (free, mask, req, count, order, limit_one). The mask is the static
+    plane with the resident self-anti-affinity term: one call of row P."""
+    mask = predicate_kernel.plane(nodes, specs, predicate_kernel.STATIC,
+                                  scheduled=scheduled)
     order = ffd_order(specs.req, specs.valid & (specs.count > 0))
     count = torch.where(specs.valid, specs.count, 0)
     return (nodes.free(), mask, specs.req, count, order,

@@ -816,6 +816,99 @@ def test_predicate_kernel_main_path_shapes(cuda, shape):
         _pred_equal(case, func)
 
 
+def _pred_resident_equal(case, checks, mask=None):
+    """The plane with the case's resident pods on the card: one call,
+    byte-equal to the plain version on the same CUDA tensors."""
+    args = (case.nodes, case.specs, checks, False, mask, case.scheduled)
+    want = predicate_kernel.plane_plain(*args)
+    before = predicate_kernel.launch.launches
+    got = predicate_kernel.plane(*args)
+    torch.cuda.synchronize()
+    assert predicate_kernel.launch.launches == before + 1
+    assert got.dtype == want.dtype == torch.bool
+    assert torch.equal(got, want), (checks, mask is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(pred_cases.CASES))
+def test_predicate_kernel_resident_cases(cuda, name):
+    """Every case with its resident pods (indices outside the plane among
+    them), the static and the full checks, with and without the mask."""
+    case = pred_cases.CASES[name]().to(cuda)
+    for checks in (predicate_kernel.STATIC, predicate_kernel.ALL_CHECKS):
+        for mask in (None, case.group_mask):
+            _pred_resident_equal(case, checks, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 33, 200])
+def test_predicate_kernel_group_widths(cuda, g):
+    """N = 1,031 (past a tile of 32, a partial last one) at `Dims()` with
+    one group, 33 (two resident words) and 200 (four chunks of groups):
+    every public function, both kinds, and the resident term."""
+    case = pred_cases.world(g, 1031, g).to(cuda)
+    for func in pred_cases.FUNCTIONS:
+        _pred_equal(case, func)
+    for checks in (predicate_kernel.STATIC, predicate_kernel.ALL_CHECKS):
+        for mask in (None, case.group_mask):
+            _pred_resident_equal(case, checks, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_predicate_kernel_misaligned_planes(cuda, k):
+    """Every plane a view k elements into its buffer: no slice starts on a
+    16-byte boundary, so the edges of each bulk copy go by plain loads."""
+    for name in ("random", "residents", "wide"):
+        case = pred_cases.shifted(pred_cases.CASES[name]().to(cuda), k)
+        assert case.nodes.label_hash.data_ptr() % 16 != 0
+        for func in pred_cases.FUNCTIONS:
+            _pred_equal(case, func)
+        for checks in (predicate_kernel.STATIC, predicate_kernel.ALL_CHECKS):
+            _pred_resident_equal(case, checks, case.group_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_constraints", [False, True])
+def test_predicate_fused_step_runs_no_plain_resident_term(cuda, monkeypatch,
+                                                          with_constraints):
+    """The fused step on the card builds the filter's and the drain's
+    planes with the resident term inside row P: `resident_group_counts`
+    (the plain version's term) is called nowhere, and each plane is byte-
+    equal to the plain version's."""
+    from torch_parity import PORT, build_world, encode_world
+
+    from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
+    from kubernetes_autoscaler_tpu_torch.ops import autoscale_step, schedule
+
+    def refuse(*a, **kw):
+        raise AssertionError("resident_group_counts on the card's path")
+
+    enc, groups = encode_world(PORT, build_world(PORT, seed=0, pools=3),
+                               device=cuda)
+    calls = []
+    real = predicate_kernel.plane
+
+    def plane(*a, **kw):
+        calls.append(predicate_kernel.bind_args(*a, **kw))
+        return real(*a, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(predicate_kernel, "resident_group_counts", refuse)
+        m.setattr(schedule, "resident_group_counts", refuse)
+        m.setattr(predicate_kernel, "plane", plane)
+        autoscale_step.run_once_fused(
+            enc.nodes, enc.specs, enc.scheduled, groups,
+            torch.full((groups.ng,), 16, dtype=torch.int32, device=cuda),
+            Dims(), max_new_nodes=16, max_pods_per_node=32,
+            planes=enc.planes, with_constraints=with_constraints)
+        torch.cuda.synchronize()
+    resident = [c for c in calls if c[5] is not None]
+    assert len(resident) == 2
+    for args in resident:
+        assert torch.equal(real(*args), predicate_kernel.plane_plain(*args))
+
+
 @pytest.mark.cuda
 def test_predicate_kernel_every_check_subset(cuda):
     """Every subset of the checks, both kinds, with and without a group
@@ -840,6 +933,9 @@ def test_predicate_kernel_reads_nothing_back(cuda):
         predicates.feasibility_mask(case.nodes, case.specs, False)
         predicates.reason_mask_for_groups(case.nodes, case.specs,
                                           case.group_mask)
+        predicate_kernel.plane(case.nodes, case.specs,
+                               predicate_kernel.STATIC,
+                               scheduled=case.scheduled)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -848,23 +944,31 @@ def test_predicate_kernel_reads_nothing_back(cuda):
 @pytest.mark.cuda
 def test_predicate_smem_matches_the_entry(cuda):
     """The wrapper's shared-memory reckoning is the C entry's
-    (`ka_pred_smem`), for every check subset at two sets of widths."""
+    (`ka_pred_smem`), for every check subset, with and without residents,
+    at three sets of widths and at widths that make the group chunk
+    halve."""
     import ctypes
 
     from kubernetes_autoscaler_tpu_torch.ops.kernels.build import load
 
     lib = load(predicate_kernel.SOURCE)
-    lib.ka_pred_smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.ka_pred_smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                 ctypes.c_int]
     lib.ka_pred_smem.restype = ctypes.c_int64
-    for name in ("wide", "narrow"):
+    widths = []
+    for name in ("wide", "narrow", "residents"):
         case = pred_cases.CASES[name]()
+        widths.append(predicate_kernel.check_inputs(
+            case.nodes, case.specs, predicate_kernel.ALL_CHECKS)[0])
+    widths.append(dict(widths[0], G=300, S=40, A=30, Sn=50, PP=200))
+    for d in widths:
         for checks in range(1, predicate_kernel.ALL_CHECKS + 1):
-            d, _ = predicate_kernel.check_inputs(case.nodes, case.specs,
-                                                 checks)
-            dims = (ctypes.c_int * len(predicate_kernel.DIMS))(
-                *[d[k] for k in predicate_kernel.DIMS])
-            assert lib.ka_pred_smem(dims, checks) == \
-                predicate_kernel.smem_bytes(d, checks), (name, checks)
+            for resident in (0, 1):
+                dims = (ctypes.c_int * len(predicate_kernel.DIMS))(
+                    *[d[k] for k in predicate_kernel.DIMS])
+                assert lib.ka_pred_smem(dims, checks, resident) == \
+                    predicate_kernel.smem_bytes(d, checks, bool(resident)), \
+                    (d, checks, resident)
 
 
 @pytest.mark.cuda
@@ -882,3 +986,18 @@ def test_predicate_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         f(nd.replace(label_hash=nd.label_hash.t().contiguous().t()), sp,
           predicate_kernel.SELECTOR)
+    sc = case.scheduled
+    static = predicate_kernel.STATIC
+    with pytest.raises(ValueError):   # the reason kind takes no residents
+        f(nd, sp, static, True, None, sc)
+    with pytest.raises(ValueError):   # residents on the CPU
+        f(nd, sp, static, False, None, sc.replace(valid=sc.valid.cpu()))
+    with pytest.raises(TypeError):
+        f(nd, sp, static, False, None,
+          sc.replace(node_idx=sc.node_idx.long()))
+    with pytest.raises(ValueError):
+        f(nd, sp, static, False, None,
+          sc.replace(group_ref=sc.group_ref[1:]))
+    with pytest.raises(ValueError):
+        f(nd, sp.replace(anti_affinity_self=sp.anti_affinity_self[1:]),
+          static, False, None, sc)

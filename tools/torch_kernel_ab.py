@@ -32,7 +32,13 @@ design) includes the index wrap and the stable `torch.sort` before it.
 Row P reports it too: a tree without `predicates.cu` (an older port) built
 its planes with the plain version, so for it row P is THIS checkout's plain
 version on the card (the same code, moved), whose time as launched is
-mostly the host's enqueue of its ≈ 570 launches.
+mostly the host's enqueue of its ≈ 570 launches. The filter's and the
+drain's planes carry the resident self-anti-affinity term: a tree whose
+entry takes the resident pods (its source names `kResValid`) computes it in
+the same call; for one whose entry does not (the first design), the time is
+its plane's plus THIS checkout's plain term after it
+(`resident_group_counts` and the elementwise AND, as that tree's callers
+ran it).
 
 A tree's K2 entry either takes a `delta` scratch plane (the one-CTA design)
 or a cluster size and a free-plane placement and no scratch (the cluster
@@ -94,6 +100,9 @@ def build_tree(tree: str, out_dir: str, rows, sources=None) -> dict:
         if row == "P" and not os.path.exists(src):
             libs[row] = None
             continue
+        if row == "P":
+            with open(src) as f:
+                libs["P residents"] = "kResValid" in f.read()
         lib = os.path.join(out_dir, f"{row}.so")
         procs[row] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
@@ -103,6 +112,9 @@ def build_tree(tree: str, out_dir: str, rows, sources=None) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tree} row {row}:\n{log}")
         libs[row] = ctypes.CDLL(lib)
+    if libs.get("P") is not None:
+        libs["P"] = (libs["P"], libs.pop("P residents"))
+    libs.pop("P residents", None)
     return libs
 
 
@@ -329,43 +341,56 @@ def hist_launcher(lib):
 
 
 def pred_launcher(lib):
-    """Row P's plane (nodes, specs, checks, bits, group_mask) through `lib`;
+    """Row P's plane (nodes, specs, checks, bits, group_mask, scheduled)
+    through `lib` ((library, whether its entry takes the resident pods));
     with no library (a tree before row P), this checkout's plain version on
-    the card."""
+    the card. An entry without the resident pods gets this checkout's plain
+    resident term after its plane."""
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
     if lib is None:
         return lambda *args: (pk.plane_plain(*args),)
+    lib, takes_residents = lib
     fn = lib.ka_pred_plane
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    # the first design's Field enum ends with the group mask and the
+    # output, its Dim enum with PP
+    first = len(pk.FIELDS) + 2, len(pk.DIMS) - 1
 
-    def launch(nodes, specs, checks, bits, group_mask):
-        d, dev = pk.check_inputs(nodes, specs, checks, bits, group_mask)
+    def launch(nodes, specs, checks, bits, group_mask, scheduled=None):
+        d, dev, ts = pk._contract(nodes, specs, checks, bits, group_mask,
+                                  scheduled)
         out = torch.empty((d["G"], d["N"]),
                           dtype=torch.uint16 if bits else torch.bool,
                           device=dev)
-        fields = {i for c, idx in pk.READS.items() if checks & c for i in idx}
-        ptrs = [getattr(nodes if owner == "nodes" else specs, name).data_ptr()
-                if i in fields else None
-                for i, (owner, name, _, _) in enumerate(pk.FIELDS)]
-        ptrs += [None if group_mask is None else group_mask.data_ptr(),
-                 out.data_ptr()]
-        dims = [d[k] for k in pk.DIMS]
-        rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
-                (ctypes.c_int * len(dims))(*dims), checks, int(bits),
-                torch.cuda.current_stream().cuda_stream)
+        ts[pk.OUT] = out
+        if takes_residents:
+            if scheduled is not None:
+                ts[pk.WORDS] = torch.empty(((d["G"] + 31) // 32) * d["N"],
+                                           dtype=torch.int32, device=dev)
+            nf, nd = len(ts), len(pk.DIMS)
+        else:
+            nf, nd = first
+        ptrs = [None if t is None else t.data_ptr() for t in ts[:nf]]
+        dims = [d[k] for k in pk.DIMS[:nd]]
+        rc = fn((ctypes.c_void_p * nf)(*ptrs), (ctypes.c_int * nd)(*dims),
+                checks, int(bits), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"row P launch failed: CUDA error {rc}")
+        if scheduled is not None and not takes_residents:
+            resident = pk.resident_group_counts(scheduled, d["G"], d["N"])
+            out = out & ~(specs.anti_affinity_self[:, None] & (resident > 0))
         return (out,)
     return launch
 
 
 def pred_inputs() -> dict:
     """{name: ("P", plane args, (plain plane,))} of every distinct plane
-    call of one [main] step and one [constrained] step."""
+    call of one [main] step and one [constrained] step (with and without
+    the resident pods)."""
     from kubernetes_autoscaler_tpu_torch.models.cluster_state import Dims
     from kubernetes_autoscaler_tpu_torch.ops.kernels import predicate_kernel as pk
 
@@ -380,12 +405,14 @@ def pred_inputs() -> dict:
         step()
         for i, args in enumerate(cs.record_pred_calls(step)):
             d, _ = pk.check_inputs(*args)
-            key = (args[2], args[3], d["G"], d["N"])
+            key = (args[2], args[3], d["G"], d["N"], args[5] is not None)
             if key in seen:
                 continue
             seen.add(key)
             kind = {pk.STATIC: "static", pk.SELECTOR: "selector"}.get(
                 args[2], f"checks {args[2]}")
+            if args[5] is not None:
+                kind += f"+residents P={d['P']}"
             out[f"P {tag} call {i} {kind} G={d['G']} N={d['N']}"] = (
                 "P", args, (pk.plane_plain(*args),))
     return out
